@@ -8,8 +8,8 @@ FIXTURES ?= /tmp/cmi_fixtures
 PY ?= python
 
 .PHONY: build test fixtures run-inverse-bench run-gauss-bench \
-        run-square-bench chip-test cholesky-demo gauss-demo singular-demo \
-        bench bench-warm clean
+        run-square-bench chip-smoke cholesky-demo gauss-demo singular-demo \
+        bench clean
 
 build:
 	$(PY) -m pip install -e . --no-deps --no-build-isolation -q
@@ -42,17 +42,10 @@ run-square-bench:
 	  --reps $(BENCH_REPS) --max-dups $(BENCH_MAX_DUPS) \
 	  --out results/square-bench.txt
 
-# on-chip validation ledger (VERDICT r2 weak #6) — resumable foreground
-# chunks; rerun until exit code != 3.  Appends to results/chip-tests.txt.
-chip-test:
-	mkdir -p results
-	$(PY) -m cuda_matrix_inversion_tpu.bench.chip_tests \
-	  --progress /tmp/cmi_chip_tests.progress --budget-s 380
-
-# the whole pending-chip-work queue (ledger, kernel A/Bs, bench.py,
-# sweeps, plots) as one resumable chunk; rerun until exit code != 3
-chip-session:
-	timeout 590 bash tools/chip_session.sh
+# the main paths at real sizes on one GPU, each against the float64
+# reference (fails where JAX finds no accelerator)
+chip-smoke:
+	$(PY) chip_smoke.py
 
 # ref: make cholesky_cpu pipes a known SPD 4x4 (Makefile:229-235)
 cholesky-demo:
@@ -72,13 +65,6 @@ singular-demo:
 
 bench:
 	$(PY) bench.py
-
-# pre-compile bench.py's exact gate+chain graphs into the persistent
-# compilation cache (VERDICT r4 weak #4d: with the compile helper in its
-# slow mode, a cold cache produced 0.0 headlines; a warm one measured
-# 310x).  Run before the driver's bench, e.g. at end of a chip session.
-bench-warm:
-	$(PY) bench.py --warm
 
 clean:
 	rm -f cuda_matrix_inversion_tpu/native/libcmi_native.so

@@ -1,4 +1,4 @@
-"""cuda_matrix_inversion_tpu — a TPU-native batched dense linear-algebra framework.
+"""cuda_matrix_inversion_tpu — a JAX batched dense linear-algebra framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of the
 reference CUDA library ``akuendig/cuda-matrix-inversion``:
@@ -13,19 +13,20 @@ reference CUDA library ``akuendig/cuda-matrix-inversion``:
   with CSV output — reference ``src/helper.cu``, ``include/timer.h``,
   ``src/inverse_bench.c``, ``src/gauss_bench.cu``
 
-Design stance (TPU-first, not a CUDA translation):
+Design stance:
 
-* batches are HBM-resident ``(batch, n, n)`` arrays, not pointer arrays;
-  the reference's pitched ``batchedCudaMalloc`` (``src/helper.cu:103-118``)
-  has no analog because XLA owns layout.
-* the reference's per-column kernel-launch storms
-  (``src/gauss/batched_invert.cu:84-95``) become single fused Pallas
-  kernels with an in-kernel ``fori_loop`` over pivots.
+* batches are device-resident ``(batch, n, n)`` arrays, not pointer
+  arrays; the reference's pitched ``batchedCudaMalloc``
+  (``src/helper.cu:103-118``) has no analog because XLA owns layout.
+* factorizations go to the vendor's batched solvers through XLA (the
+  reference's fastest design, cuBLAS batched LU); a hand-written kernel
+  stays only where it beats them — the Newton–Schulz lanes run one
+  Triton program per matrix.
 * the two-flavor API split of the reference (`*_batched_gpu` host
   convenience vs `*_batched_device` device-resident composable —
   ``include/inverse_gpu.h``) is preserved as: NumPy-in/NumPy-out
   convenience wrappers vs jit-composable device functions.
-* scale-out shards the batch axis over an ICI mesh with
+* scale-out shards the batch axis over the devices of a host with
   ``jax.sharding``/``shard_map`` (the reference is single-GPU).
 """
 

@@ -2,8 +2,8 @@
 
 The production-runtime layer the reference never needed (its binaries run
 for seconds; SURVEY §5 "checkpoint/resume: none").  For serving, the
-latency killers on TPU are (re)compilation and shape churn; the engine
-removes both:
+latency killers on an accelerator are (re)compilation and shape churn;
+the engine removes both:
 
 * a fixed set of (batch-bucket, dim-bucket) entry points is compiled
   once at startup (``warmup()``), backed by the persistent compilation
@@ -27,12 +27,6 @@ import numpy as np
 
 DEFAULT_DIM_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 DEFAULT_BATCH_BUCKETS = (8, 32, 128, 512, 2048)
-# The warm-refinement Pallas kernels serve n <= 224 (their two pipelined
-# (BM,N,N) inputs overflow VMEM at 256 — see inverse_newton_schulz_warm).
-# Warm requests bucket against these so 129..224 stays on the warm kernel
-# instead of padding to 256 and silently degrading to a cold solve
-# (ADVICE r1 finding #1).
-WARM_DIM_BUCKETS = (8, 16, 32, 64, 128, 160, 192, 224)
 
 
 def _round_up(value: int, buckets: Sequence[int]) -> int:
@@ -78,26 +72,6 @@ class _BucketedEngine:
         return (_round_up(batch, self.batch_buckets),
                 _round_up(n, self.dim_buckets))
 
-    def _warm_buckets_for(self, batch: int, n: int,
-                          served_past_ceiling: bool = False) -> Tuple[int, int]:
-        """Bucketing for warm-refinement requests: finer dim buckets up to
-        the warm kernels' n=224 VMEM ceiling; past it, fall back to the
-        regular buckets.  Unless ``served_past_ceiling`` (the split3
-        warm path refines through XLA-level HIGH rounds at any n), the
-        warm executable then runs a cold solve internally — warn, since
-        prev_inv is discarded."""
-        if n <= WARM_DIM_BUCKETS[-1]:
-            return (_round_up(batch, self.batch_buckets),
-                    _round_up(n, WARM_DIM_BUCKETS))
-        if not served_past_ceiling:
-            import warnings
-
-            warnings.warn(
-                f"warm refinement serves n <= {WARM_DIM_BUCKETS[-1]}; n={n} "
-                "runs a cold adaptive solve (prev inverse discarded)",
-                stacklevel=3)
-        return self._buckets_for(batch, n)
-
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Pre-compile for (batch, n) shapes (bucketed) before serving."""
         for batch, n in shapes:
@@ -109,15 +83,19 @@ class _BucketedEngine:
             return sorted(self._compiled)
 
     # -- padding helpers ---------------------------------------------------
-    def _pad_square(self, m: np.ndarray, batch_b: int, dim_b: int) -> np.ndarray:
+    def _pad_square(self, m: np.ndarray, batch_b: int, dim_b: int,
+                    scale=None) -> np.ndarray:
         """(batch, n, n) → (batch_b, dim_b, dim_b); identity blocks keep
-        every padded matrix invertible and un-padding exact."""
+        every padded matrix invertible and un-padding exact.  ``scale``
+        (batch,) multiplies each matrix's identity block."""
         batch, n = m.shape[0], m.shape[-1]
         dt = np.dtype(self.dtype)
         out = np.zeros((batch_b, dim_b, dim_b), dt)
         out[:batch, :n, :n] = m
         if dim_b > n:
             out[:, n:, n:] = np.eye(dim_b - n, dtype=dt)
+            if scale is not None:
+                out[:batch, n:, n:] *= scale[:, None, None].astype(dt)
         if batch_b > batch:
             out[batch:] = np.eye(dim_b, dtype=dt)
         return out
@@ -131,14 +109,19 @@ class _BucketedEngine:
 class InversionEngine(_BucketedEngine):
     """Pre-compiled batched-inversion service.
 
+    The default cold route is ``lu`` (batched getrf through XLA): any
+    nonsingular input with κ·ε₃₂ ≲ 1 holds the gate, where the
+    Newton–Schulz lanes hold it only inside their stated κ domains.
+    Pick an NS lane by name for a batch known to sit in its domain.
+
     Example::
 
-        eng = InversionEngine(algorithm="newton_schulz")
+        eng = InversionEngine()
         eng.warmup([(100, 128)])          # compile ahead of serving
         out = eng.inverse(batch)           # (b, n, n) ndarray in/out
     """
 
-    def __init__(self, algorithm: str = "newton_schulz",
+    def __init__(self, algorithm: str = "lu",
                  warm_precision: str | None = None, **kw):
         super().__init__(**kw)
         self.algorithm = algorithm
@@ -167,9 +150,7 @@ class InversionEngine(_BucketedEngine):
     def warmup_warm(self, shapes) -> None:
         """Pre-compile the warm-start refinement path for (batch, n) shapes."""
         for batch, n in shapes:
-            batch_b, dim_b = self._warm_buckets_for(
-                batch, n,
-                served_past_ceiling=self.warm_precision == "split3")
+            batch_b, dim_b = self._buckets_for(batch, n)
             self._get_or_compile(self._compiled_warm, batch_b, dim_b,
                                  self._lower_warm)
 
@@ -192,12 +173,13 @@ class InversionEngine(_BucketedEngine):
         from cuda_matrix_inversion_tpu.ops.newton_schulz import (
             inverse_newton_schulz_warm,
         )
+        from cuda_matrix_inversion_tpu.ops.precision import matmul
 
         def fn(a, x0):
             x = inverse_newton_schulz_warm(a, x0,
                                            precision=self.warm_precision)
             eye = jnp.eye(dim_b, dtype=x.dtype)
-            ax = jnp.matmul(a, x, precision=jax.lax.Precision.HIGHEST)
+            ax = matmul(a, x)
             return x, jnp.max(jnp.sum(jnp.abs(ax - eye), axis=-1))
 
         spec = jax.ShapeDtypeStruct((batch_b, dim_b, dim_b), np.dtype(self.dtype))
@@ -208,15 +190,12 @@ class InversionEngine(_BucketedEngine):
         """Refine ``prev_inv`` (the inverse of a nearby batch) for ``a``.
 
         The serving pattern for slowly-varying systems (per-timestep
-        sensor covariances): ~2x cheaper than a cold ``inverse`` while
+        sensor covariances): fewer rounds than a cold ``inverse`` while
         the relative change δ satisfies δ·κ(A) ≲ 0.3 — past that, call
-        ``inverse`` again.  Shapes must match.  Dims bucket against
-        ``WARM_DIM_BUCKETS`` (up to 224, the warm kernel's VMEM ceiling);
-        larger n warns and runs cold — except ``warm_precision="split3"``
-        engines, whose XLA-level HIGH rounds refine at any n.
+        ``inverse`` again.  Shapes must match.
 
         ``check=True`` also computes ‖AX − I‖∞ on device (one extra
-        HIGHEST matmul) and raises ``LinAlgError`` when it exceeds
+        fp32 matmul) and raises ``LinAlgError`` when it exceeds
         ``tol`` — the warm refinement DIVERGES (to finite garbage, so a
         finiteness check cannot catch it) when the batch jumped too far
         from the one ``prev_inv`` belonged to.
@@ -234,8 +213,7 @@ class InversionEngine(_BucketedEngine):
         batch, n = a.shape[0], a.shape[-1]
         if batch == 0:
             return a.copy()
-        batch_b, dim_b = self._warm_buckets_for(
-            batch, n, served_past_ceiling=self.warm_precision == "split3")
+        batch_b, dim_b = self._buckets_for(batch, n)
         # separate caches: _compiled holds the cold executables and feeds
         # compiled_shapes, which sorts homogeneous (batch, dim) keys
         if check:
@@ -273,7 +251,12 @@ class InversionEngine(_BucketedEngine):
         if batch == 0:
             return a.copy()
         batch_b, dim_b = self._buckets_for(batch, n)
-        padded = self._pad_square(a, batch_b, dim_b)
+        # pad block s·I, s = min(‖A‖₁, ‖A‖∞): the padded matrix keeps A's
+        # norms, so the Newton–Schulz lanes start at the scaling their
+        # schedules were calibrated on, whatever A's scale
+        s = np.minimum(np.abs(a).sum(-1).max(-1), np.abs(a).sum(-2).max(-1))
+        padded = self._pad_square(a, batch_b, dim_b,
+                                  scale=np.where(s > 0, s, 1.0))
         exe = self._get_executable(batch_b, dim_b)
         out = np.asarray(jax.device_get(exe(jax.device_put(padded))))
         result = out[:batch, :n, :n]
@@ -295,12 +278,9 @@ class GPEngine(_BucketedEngine):
     ``InversionEngine.inverse_warm``.
     """
 
-    def __init__(self, method: str = "solve", fit_method: str = "auto", **kw):
+    def __init__(self, method: str = "solve", **kw):
         super().__init__(**kw)
         self.method = method
-        # fused custom-VJP fit loop where it applies (f32); XLA otherwise
-        self.fit_method = (("pallas" if np.dtype(self.dtype) == np.float32
-                            else "xla") if fit_method == "auto" else fit_method)
         self._compiled_gp_warm: Dict[Tuple[int, int], object] = {}
         self._compiled_fit: Dict[Tuple[int, int, int, float], object] = {}
 
@@ -405,29 +385,26 @@ class GPEngine(_BucketedEngine):
         mat = jax.ShapeDtypeStruct((batch_b, dim_b, dim_b), dt)
         wshape = jax.ShapeDtypeStruct((batch_b,), dt)
         fn = lambda b_, c_, d_, w_: fit_gp_scales(  # noqa: E731
-            b_, c_, d_, steps=steps, lr=lr, method=self.fit_method,
-            weights=w_)
+            b_, c_, d_, steps=steps, lr=lr, weights=w_)
         return jax.jit(fn).lower(mat, vec, vec, wshape).compile()
 
     # -- warm serving --------------------------------------------------------
     def _lower_gp_warm(self, batch_b: int, dim_b: int):
         import jax
 
-        from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-            gp_mean_variance_fused_warm,
-        )
+        from cuda_matrix_inversion_tpu.models.gp import gp_mean_variance_warm
 
         dt = np.dtype(self.dtype)
         vec = jax.ShapeDtypeStruct((batch_b, dim_b, 1), dt)
         mat = jax.ShapeDtypeStruct((batch_b, dim_b, dim_b), dt)
         scl = jax.ShapeDtypeStruct((batch_b, 1, 1), dt)
-        return jax.jit(gp_mean_variance_fused_warm).lower(
+        return jax.jit(gp_mean_variance_warm).lower(
             vec, mat, vec, vec, scl, mat).compile()
 
     def warmup_warm(self, shapes) -> None:
         """Pre-compile the warm GP path for (batch, n) shapes."""
         for batch, n in shapes:
-            batch_b, dim_b = self._warm_buckets_for(batch, n)
+            batch_b, dim_b = self._buckets_for(batch, n)
             self._get_or_compile(self._compiled_gp_warm, batch_b, dim_b,
                                  self._lower_gp_warm)
 
@@ -453,7 +430,7 @@ class GPEngine(_BucketedEngine):
         if prev_kinv.shape != b.shape:
             raise ValueError(
                 f"prev_kinv shape {prev_kinv.shape} must match b {b.shape}")
-        batch_b, dim_b = self._warm_buckets_for(batch, n)
+        batch_b, dim_b = self._buckets_for(batch, n)
 
         bp = self._pad_square(b, batch_b, dim_b)
         xp = self._pad_square(prev_kinv, batch_b, dim_b)  # identity pad: X=K⁻¹

@@ -3,7 +3,7 @@
 Reference counterpart: the pinned-memory transfer machinery measured in
 ``src/bench.cu:112-156`` and the pitched batched uploads
 (``inverse_cholesky_gpu.cu:204-215``) — the reference's answer to feeding
-the device.  The TPU-native answer is a prefetching pipeline: a
+the device.  The answer here is a prefetching pipeline: a
 background thread parses ``.mats`` shards (native C++ parser when built)
 and issues ``jax.device_put`` while the device crunches the previous
 batch; ``device_put`` is async, so transfer N+1 overlaps compute N and
@@ -12,7 +12,7 @@ the consumer only ever blocks on data that is already in flight.
 Usage::
 
     for batch in DeviceBatchStream(paths, batch_size=256):
-        out = jitted_fn(batch)   # batch is already HBM-resident
+        out = jitted_fn(batch)   # batch is already device-resident
 """
 
 from __future__ import annotations

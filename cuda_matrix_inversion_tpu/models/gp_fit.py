@@ -11,13 +11,16 @@ parameters θ = (log amplitude, log noise) of
 by maximizing :func:`..models.gp.gp_log_marginal_likelihood` of the
 observations d with Adam (optax).
 
-TPU-first design: the entire optimization is ONE jitted ``lax.scan`` over
-update steps — each step is a batched Cholesky + two triangular solves on
-the MXU plus an O(batch) parameter update, with no host round-trips and
-no per-step dispatch.  Gradients come from ``jax.grad`` through JAX's
-cholesky/triangular_solve VJP rules; the batch dimension is native
-(systems are independent, so the summed loss decouples per system).
-Multi-chip: shard the batch axis exactly like the prediction pipelines
+The entire optimization is ONE jitted ``lax.scan`` over update steps —
+each step is a batched Cholesky + triangular inverse plus an O(batch)
+parameter update, with no host round-trips and no per-step dispatch.
+Gradients come from the analytic custom VJP of
+:func:`..models.gp.gp_log_marginal_likelihood_vjp` (one batched WᵀW
+product on the forward's residuals; faster than ``jax.grad`` through the
+Cholesky and triangular-solve rules, which stays the tests' reference);
+the batch dimension is native (systems are independent, so the summed
+loss decouples per system).  Multi-device:
+shard the batch axis exactly like the prediction pipelines
 (``parallel/sharded.py``) — the fit has no cross-system collectives.
 """
 
@@ -31,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from cuda_matrix_inversion_tpu.models.gp import gp_log_marginal_likelihood
+from cuda_matrix_inversion_tpu.models.gp import gp_log_marginal_likelihood_vjp
 
 
 class GPFitResult(NamedTuple):
@@ -60,34 +63,20 @@ def apply_scales(b, c, log_amp, log_noise):
     return b * amp2, c * noise2
 
 
-def _batch_lml(theta, b, c, d, method: str = "xla"):
+def _batch_lml(theta, b, c, d):
     """Per-system LML under θ — (batch,)."""
     b_hat, c_hat = apply_scales(b, c, theta[:, 0], theta[:, 1])
-    if method == "pallas":
-        # fused Pallas forward + analytic custom-VJP backward riding the
-        # fused inverse kernel (ops/pallas_gp.py) — the fast fit loop
-        from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-            gp_log_marginal_likelihood_fused,
-        )
-
-        return gp_log_marginal_likelihood_fused(b_hat, c_hat, d)
-    if method != "xla":
-        raise ValueError(f"unknown method {method!r} (xla | pallas)")
-    return gp_log_marginal_likelihood(b_hat, c_hat, d)
+    return gp_log_marginal_likelihood_vjp(b_hat, c_hat, d)
 
 
-@partial(jax.jit, static_argnames=("steps", "lr", "method"))
+@partial(jax.jit, static_argnames=("steps", "lr"))
 def fit_gp_scales(b, c, d, steps: int = 150, lr: float = 0.05,
-                  theta0=None, method: str = "xla",
-                  weights=None) -> GPFitResult:
+                  theta0=None, weights=None) -> GPFitResult:
     """Fit (log_amp, log_noise) per system by Adam on −LML.
 
     Shapes: b — (batch, n, n) SPD; c, d — (batch, n, 1);
     ``theta0`` — optional (batch, 2) initial (log_amp, log_noise),
     default zeros (i.e. start from the input scales).
-    ``method='pallas'`` runs every step's LML forward AND gradient on the
-    fused Pallas kernels (one factor launch + one inverse launch per
-    step); ``'xla'`` uses the expander + autodiff chain.
     ``weights`` — optional (batch,) loss weights; systems with weight 0
     (e.g. the sharded wrapper's inert mesh padding) get exactly zero
     gradient, so their θ stays at the init and their LML stays finite,
@@ -106,7 +95,7 @@ def fit_gp_scales(b, c, d, steps: int = 150, lr: float = 0.05,
          else jnp.asarray(weights, dtype=b.dtype))
     wsum = jnp.maximum(jnp.sum(w), jnp.ones((), b.dtype))
     opt = optax.adam(lr)
-    loss_fn = lambda t: -(jnp.sum(w * _batch_lml(t, b, c, d, method=method))
+    loss_fn = lambda t: -(jnp.sum(w * _batch_lml(t, b, c, d))
                           / wsum)
 
     def step(carry, _):
@@ -119,15 +108,13 @@ def fit_gp_scales(b, c, d, steps: int = 150, lr: float = 0.05,
     (theta, _), lml_path = jax.lax.scan(
         step, (theta, opt.init(theta)), None, length=steps)
     return GPFitResult(log_amp=theta[:, 0], log_noise=theta[:, 1],
-                       lml=_batch_lml(theta, b, c, d, method=method),
+                       lml=_batch_lml(theta, b, c, d),
                        lml_path=lml_path)
 
 
 def fit_gp_scales_host(b, c, d, steps: int = 150, lr: float = 0.05,
-                       theta0=None, method: str = "xla",
-                       weights=None) -> GPFitResult:
+                       theta0=None, weights=None) -> GPFitResult:
     """NumPy-in/NumPy-out flavor (analog of the ``*_gpu`` host wrappers)."""
     res = fit_gp_scales(*(jnp.asarray(x) for x in (b, c, d)),
-                        steps=steps, lr=lr, theta0=theta0, method=method,
-                        weights=weights)
+                        steps=steps, lr=lr, theta0=theta0, weights=weights)
     return GPFitResult(*(np.asarray(jax.device_get(x)) for x in res))

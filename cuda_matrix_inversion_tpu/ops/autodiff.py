@@ -7,7 +7,7 @@ differentiable).  The analytic rule closes both gaps exactly:
     X = A⁻¹  ⇒  dX = −X · dA · X      (so  Ā = −Xᵀ · X̄ · Xᵀ)
 
 i.e. the backward pass is two batched matmuls against the primal OUTPUT —
-no re-factorization, MXU-only, and numerically the right thing (it is the
+no re-factorization, matrix products only, and numerically the right thing (it is the
 true derivative of the exact inverse, independent of which algorithm
 produced X).
 

@@ -82,7 +82,7 @@ def inverse_gauss_jordan(a: np.ndarray) -> np.ndarray:
     a = np.asarray(a)
     batch, n, n2 = a.shape
     assert n == n2, f"square matrices required, got {a.shape}"
-    # Augmented [A | I], vectorized over the batch like the TPU kernel.
+    # Augmented [A | I], vectorized over the batch.
     aug = np.concatenate([a.astype(a.dtype, copy=True),
                           np.broadcast_to(np.eye(n, dtype=a.dtype), a.shape).copy()], axis=2)
     for k in range(n):

@@ -1,63 +1,65 @@
-"""Newton-Schulz batched inversion — the MXU-native inversion algorithm.
+"""Newton–Schulz batched inversion.
 
 No reference counterpart: the reference's fastest path is cuBLAS batched
-LU (``src/gauss/inverse_gpu.cu:16-58``), a factorization whose sequential
-pivot recurrence fights the MXU.  Newton-Schulz iteration
+LU (``src/gauss/inverse_gpu.cu:16-58``).  Newton–Schulz iteration
 
     X_{k+1} = X_k (2I − A X_k)
 
-is pure batched matmul — exactly what the 128×128 systolic array is built
-for — and converges quadratically whenever ‖I − X₀A‖ < 1, which the
-scaled-transpose start X₀ = Aᵀ/(‖A‖₁‖A‖∞) guarantees for any nonsingular
-A (Pan & Schreiber, SIAM J. Sci. Stat. Comput. 12(5), 1991).
+is pure batched matrix products and converges quadratically whenever
+‖I − X₀A‖ < 1, which the scaled-transpose start X₀ = Aᵀ/(‖A‖₁‖A‖∞)
+guarantees for any nonsingular A (Pan & Schreiber, SIAM J. Sci. Stat.
+Comput. 12(5), 1991).
 
-Precision schedule: the contraction phase runs in DEFAULT precision
-(single-pass bf16 MXU, ~6× cheaper) under a device-side
-``lax.while_loop`` that monitors ‖I − AX‖∞ — no host round-trip — and a
-fixed fp32 (HIGHEST) polish squeezes the error to ~1e-7·κ.  Quadratic
-convergence means the bf16 phase only needs to reach ~1e-2.
+Two schedules:
 
-Tradeoff vs the factorization paths: iteration count grows with log κ(A)
-and fp32 accuracy degrades for κ ≳ 1e4 (the 1e-4 gate bounds the usable
-range) — the Pallas/LAPACK Cholesky paths remain the backstop for
-ill-conditioned batches.  For the diagonally-dominant SPD batches this
-framework targets (reference fixture construction:
-``tests/generate_inverse_matrices.m:8-18``), κ is small and this path is
-~20× faster than any factorization on TPU.
+* **adaptive** (:func:`inverse_newton_schulz`): a bf16-pass contraction
+  phase under a device-side ``lax.while_loop`` that monitors ‖I − AX‖∞,
+  then an fp32 continuation and polish.  Finite for any nonsingular A up
+  to κ ≈ 1e4; its fp32 floor grows with κ, and the 1e-4 gate holds to
+  κ ≈ 100 (README).
+* **fixed**: scaled rounds whose count and recentering scalars are
+  compile-time constants, calibrated per lane for a stated κ domain.
+  :func:`inverse_newton_schulz_pallas` runs them as one Triton program per
+  matrix (A read once, every iterate kept on chip) for n ≤ 128;
+  :func:`inverse_newton_schulz_fixed` is the same per-matrix computation
+  under ``vmap`` in plain XLA, which serves n > 128.
+
+Every product names its algorithm (:mod:`.precision`): contraction rounds
+are one bf16 pass (``BF16``) or the 3-pass split (``BF16_X3``, the
+``split3`` lane); the residual that decides the 1e-4 gate is fp32-class
+(``BF16_X6``).  The κ domains below were calibrated with exactly those
+products and hold on any backend that honours the presets.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import warnings
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
-_HI = jax.lax.Precision.HIGHEST
-_LO = jax.lax.Precision.DEFAULT
+from cuda_matrix_inversion_tpu.ops.precision import BF16, BF16_X3, BF16_X6, F32
 
-# Default (lo_iters, hi_iters) schedules for the fixed-iteration VMEM
-# kernels — calibrated on-chip to hold the 1e-4 gate to kappa <= 30 (see
-# inverse_newton_schulz_pallas DOMAIN notes).  The fused GP kernel
-# (ops/pallas_gp.py) imports SPD_SCHEDULE, so retune in ONE place.
-# r2: SCALED rounds (scaled_round_coeffs) cut the counts from (8,2)/(16,2)
-# — measured κ=30 domain edge on chip: spd lo=5 → 2.9e-5 (6 keeps margin);
-# pan lo=11 → 2.5e-5 symmetric, lo=12 → 9.9e-5 even at κ≈100 nonsymmetric.
+# Default (lo_iters, hi_iters) schedules of the fixed-iteration lanes,
+# calibrated with one-pass bf16 products to hold the 1e-4 gate to κ ≲ 30
+# (see inverse_newton_schulz_pallas DOMAIN notes; scaled rounds,
+# scaled_round_coeffs).  On an H100 the κ=30 edge gives 3.0e-5 (spd) and
+# 2.6e-5 (pan), and pan 3.4e-5 at κ≈100 nonsymmetric (chip_smoke.py).
 SPD_SCHEDULE = (6, 2)
 PAN_SCHEDULE = (12, 2)
 
 # The high-κ general-matrix schedule (precision="split3"): every product
-# runs as the 3-pass bf16 error-split (~2⁻¹⁷ relative, vs 2⁻⁹ one-pass
-# bf16 and 2⁻²⁴ at 6-pass HIGHEST), which moves the contraction floor
-# from 2⁻⁹·κ to 2⁻¹⁷·κ — the κ ≲ 30 bf16 domain becomes κ ≲ 500 at half
-# the HIGHEST MXU cost.  Calibrated by faithful-bf16 emulation (operands
-# rounded through ml_dtypes.bfloat16, fp32 accumulate — reproduces chip
-# residuals to ~3%, r2): lo=14 is the edge (lo=12 fails at 0.66 — the
-# recentering schedule squashes EVERY input to the tracked interval, so
-# convergence is schedule-global), hi=2 needed (hi=1 → 8e-4); measured
-# gate 1.5e-5 at κ=500 nonsymmetric geomspace, 3.1e-5 at κ=1000, 2.2e-7
-# near identity, n=128.  MU_MIN_PAN500: the square_5 fixture class
+# runs as the 3-pass bf16 split (~2⁻¹⁷ relative, vs 2⁻⁹ one-pass), which
+# moves the contraction floor from 2⁻⁹·κ to 2⁻¹⁷·κ — the κ ≲ 30 bf16
+# domain becomes κ ≲ 500.  Calibrated by faithful-bf16 emulation (operands
+# rounded through ml_dtypes.bfloat16, fp32 accumulate): lo=14 is the edge
+# (lo=12 fails at 0.66 — the recentering schedule squashes EVERY input to
+# the tracked interval, so convergence is schedule-global), hi=2 needed
+# (hi=1 → 8e-4); emulated gate 1.5e-5 at κ=500 nonsymmetric geomspace,
+# 3.1e-5 at κ=1000, n=128.  MU_MIN_PAN500: the square_5 fixture class
 # (κ-capped 4·dim Ginibre) measures µ = σmin²/(‖A‖₁‖A‖∞) ≥ 1.5e-7 at
 # n=128 — 3e-8 keeps 5× margin.
 PAN500_SCHEDULE = (14, 2)
@@ -67,6 +69,24 @@ MU_MIN_PAN500 = 3e-8
 # letting the recentering scalars stay near 2 longer than the bf16
 # clamp (5e-3) would allow.
 SPLIT3_NOISE_FLOOR = 2e-4
+
+# Assumed lower edge of spec(A·X_start) for the scaled-round schedules,
+# calibrated to the κ ≲ 30 domain.  A matrix whose true edge is HIGHER
+# than assumed stays strictly inside every scheduled interval (safe);
+# lower means out of the κ domain.  spd: µ = sλ(2−sλ) ≥ ~2λmin/‖A‖∞.
+# pan: µ = σ²/(‖A‖₁‖A‖∞).
+MU_MIN_SPD = 0.01
+MU_MIN_PAN = 2e-5
+
+#: Largest n the Triton kernel serves: one program holds A, X and a
+#: round's product (three n×n fp32 tiles) in registers and shared memory.
+#: Larger n runs the same schedule through plain XLA.
+KERNEL_MAX_N = 128
+
+#: Set to "1" to run the Pallas kernels in the Pallas interpreter (the CPU
+#: test suite does; see tests/conftest.py).  Never inferred from the
+#: backend: on the CPU backend an un-interpreted kernel raises.
+INTERPRET_ENV = "CMI_PALLAS_INTERPRET"
 
 
 def _residual_inf(eye, ax):
@@ -83,7 +103,7 @@ def inverse_newton_schulz(
     tol: float = 1e-2,
     init: str = "pan",
 ) -> jnp.ndarray:
-    """Batched inverse via adaptive Newton-Schulz.
+    """Batched inverse via adaptive Newton–Schulz.
 
     ``tol`` is the bf16-phase exit residual; quadratic convergence plus
     ``polish_iters`` fp32 steps take it to fp32 roundoff.  With the
@@ -91,7 +111,10 @@ def inverse_newton_schulz(
     matrix; singular inputs yield non-finite entries, matching the LU
     path's behavior.  ``init="spd"`` (SPD inputs only, caller-asserted)
     starts from X₁ = 2sI − s²A, s = 1/‖A‖∞ — about half the contraction
-    iterations (see :func:`inverse_newton_schulz_pallas`).
+    iterations.
+
+    Each ``while_loop`` iteration ends in a device-side predicate; on the
+    GPU the loop's control flow reads it on the host once per iteration.
     """
     if init not in ("pan", "spd"):
         raise ValueError(f"init must be 'pan' or 'spd', got {init!r}")
@@ -114,11 +137,11 @@ def inverse_newton_schulz(
         c_1 = jnp.max(jnp.sum(jnp.abs(a), axis=1), axis=1)    # ‖A‖₁ per matrix
         x0 = jnp.swapaxes(a, 1, 2) / (r_inf * c_1)[:, None, None]
 
-    def step(x, prec):
-        ax = jnp.matmul(a, x, precision=prec)
-        return jnp.matmul(x, 2.0 * eye - ax, precision=prec), ax
+    def mm(x, y, alg):
+        return jnp.matmul(x, y, precision=alg,
+                          preferred_element_type=jnp.float32)
 
-    def phase(x, prec, tol_phase, iters_left):
+    def phase(x, alg, tol_phase, iters_left):
         """Iterate while the residual strictly improves and exceeds tol.
 
         The strict-decrease guard is the divergence safety: in bf16 the
@@ -127,16 +150,14 @@ def inverse_newton_schulz(
         residual also fails the comparison, exiting the loop.
 
         The loop state carries AX alongside X so that ``res`` is always
-        the residual of the CURRENT iterate (the A·Xₙ product each update
-        needs anyway doubles as the residual probe).  A lagged residual
-        here would make ``res == prev`` after the first step whenever the
-        start already has residual < 1 (e.g. the "spd" init, or a
-        near-identity input), falsely tripping the strict-decrease guard.
+        the residual of the CURRENT iterate.  A lagged residual would make
+        ``res == prev`` after the first step whenever the start already
+        has residual < 1 (e.g. the "spd" init, or a near-identity input),
+        falsely tripping the strict-decrease guard.
         """
 
         def cond(state):
             i, _, _, res, prev = state
-            # Termination logic, empirically calibrated (see tests):
             # * the ∞-norm residual of I−AX_{k+1} = (I−AX_k)² may rise
             #   transiently while > 1 (‖M²‖∞ ≤ ‖M‖∞² is the only bound),
             #   so monotonicity is only demanded once res < 1;
@@ -151,20 +172,18 @@ def inverse_newton_schulz(
 
         def body(state):
             i, x, ax, res, _ = state
-            xn = jnp.matmul(x, 2.0 * eye - ax, precision=prec)
-            axn = jnp.matmul(a, xn, precision=prec)
+            xn = mm(x, 2.0 * eye - ax, alg)
+            axn = mm(a, xn, alg)
             return i + 1, xn, axn, _residual_inf(eye, axn), res
 
-        ax0 = jnp.matmul(a, x, precision=prec)
+        ax0 = mm(a, x, alg)
         res0 = _residual_inf(eye, ax0)
         i, x, ax, res, prev = jax.lax.while_loop(
             cond, body, (0, x, ax0, res0, jnp.float32(jnp.inf)))
-        # if the last step overshot (res worse than prev), it is still the
-        # best finite iterate we kept; a NaN x is replaced by the caller.
         return x, res
 
-    # Phase 1: cheap bf16 contraction (see module docstring).
-    x, res = phase(x0, _LO, jnp.float32(tol), max_iters)
+    # Phase 1: cheap bf16 contraction.
+    x, res = phase(x0, BF16, jnp.float32(tol), max_iters)
     # Divergence fallback: if bf16 failed to contract below 1 (plateaued,
     # exploded to a large-but-finite residual, or NaN — all fail res < 1),
     # restart the fp32 phase from x0, whose spectral residual is < 1 by
@@ -173,94 +192,19 @@ def inverse_newton_schulz(
     x = jnp.where(bad, x0, x)
     # Phase 2: fp32 continuation — handles ill-conditioned batches where
     # bf16 cannot contract (err floor eps_bf16·κ ≥ 1).
-    x, _ = phase(x, _HI, jnp.float32(0.0), max_iters)
+    x, _ = phase(x, F32, jnp.float32(0.0), max_iters)
 
     for _ in range(polish_iters):
-        # full-HIGHEST polish on purpose: this path is the κ ≲ 1e4
-        # robustness backstop, and the cheaper residual-form polish (see
-        # ns_vmem_iterate) carries a 2⁻⁹·κ·‖R‖ bf16 term that can exceed
-        # ‖R‖² at large κ — only the κ ≲ 30 Pallas kernel may use it.
-        x, _ = step(x, _HI)
+        # full-fp32 polish on purpose: this path is the κ ≲ 1e4
+        # robustness backstop; the residual-form polish of the fixed lanes
+        # carries a 2⁻⁹·κ·‖R‖ bf16 term that can exceed ‖R‖² at large κ.
+        x = mm(x, 2.0 * eye - mm(a, x, F32), F32)
     return x.astype(orig_dtype)
-
-
-# ---------------------------------------------------------------------------
-# Pallas VMEM-resident variant
-# ---------------------------------------------------------------------------
-
-def ns_vmem_iterate(lo_iters, hi_iters, init, a_ref, x_ref, tmp_ref,
-                    mid_split: bool = False, polish_highest: bool = True,
-                    mu_min: float | None = None, split3: bool = False,
-                    noise_floor: float | None = None):
-    """Newton-Schulz iteration with A, X, tmp resident in VMEM refs.
-
-    Shared body for the standalone inversion kernel
-    (:func:`inverse_newton_schulz_pallas` passes it to ``pallas_call``
-    directly) and the fused GP kernel (:mod:`.pallas_gp`): seeds X per
-    ``init`` ("pan"/"spd", see :func:`inverse_newton_schulz_pallas`),
-    runs ``lo_iters`` one-pass bf16 rounds, then ``hi_iters``
-    mixed-precision polish rounds in residual form (X ← X + X·R with
-    only AX at HIGHEST).  On return ``x_ref`` holds A⁻¹.
-
-    Keeping every iterate in VMEM is the point: the XLA while-loop
-    version's loop state lives in HBM, costing ~4 matrix-sized HBM
-    transfers per iteration; here total HBM traffic is one read of A and
-    one write of X.  Iteration count is static (no adaptivity — this is
-    the speed path; :func:`inverse_newton_schulz` remains the adaptive
-    general-purpose entry).
-
-    Precision note: the residual-form polish contracts as
-    r' ≈ r² + 2⁻⁹·κ·r (the bf16 X·R product loses 2⁻⁹ relative on
-    operands of size ‖X‖‖R‖, and ‖A‖‖X‖ ≈ κ) — the κ factor is why this
-    trick is confined to these fixed-schedule kernels whose documented
-    domain is κ ≲ 30 (worst-case bound ~6e-3·r there; measured behavior
-    is far better because rounding errors accumulate RMS-wise, ~2e-5
-    final residual at κ = 30 in faithful-bf16 emulation).  The adaptive
-    :func:`inverse_newton_schulz` keeps a full-HIGHEST polish for its
-    κ ≲ 1e4 range.
-    """
-    bm, n, _ = a_ref.shape
-    eye = (jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-           == jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-           ).astype(jnp.float32)
-
-    r_inf = jnp.max(jnp.sum(jnp.abs(a_ref[:, :, :]), axis=2), axis=1)  # (BM,)
-    if init == "spd":
-        # X1 = 2sI − s²A, s = 1/‖A‖∞ (the fused-in first round)
-        s = (1.0 / r_inf)[:, None]  # (BM, 1)
-        for b in range(bm):
-            x_ref[b, :, :] = (2.0 * s[b]) * eye - (s[b] * s[b]) * a_ref[b, :, :]
-    else:
-        # X0 = Aᵀ / (‖A‖₁ ‖A‖∞) per matrix
-        c_1 = jnp.max(jnp.sum(jnp.abs(a_ref[:, :, :]), axis=1), axis=1)
-        scale = (1.0 / (r_inf * c_1))[:, None]  # (BM, 1)
-        for b in range(bm):
-            x_ref[b, :, :] = a_ref[b, :, :].T * scale[b]
-
-    if mu_min is None:
-        mu_min = (MU_MIN_PAN500 if split3
-                  else MU_MIN_SPD if init == "spd" else MU_MIN_PAN)
-    if noise_floor is None:
-        noise_floor = SPLIT3_NOISE_FLOOR if split3 else 5e-3
-    scales = scaled_round_coeffs(mu_min, lo_iters, noise_floor=noise_floor)
-    ns_vmem_rounds(lo_iters, hi_iters, a_ref, x_ref, tmp_ref, scales=scales,
-                   mid_split=mid_split, polish_highest=polish_highest,
-                   split3=split3)
-
-
-# Assumed lower edge of spec(A·X_start) for the scaled-round schedules,
-# calibrated to the κ ≲ 30 domain the fixed-schedule kernels document
-# (on-chip domain-edge validation: tests/test_pallas_kernels.py).  A
-# matrix whose true edge is HIGHER than assumed stays strictly inside
-# every scheduled interval (safe); lower means out of the κ domain, as
-# before.  spd: µ = sλ(2−sλ) ≥ ~2λmin/‖A‖∞.  pan: µ = σ²/(‖A‖₁‖A‖∞).
-MU_MIN_SPD = 0.01
-MU_MIN_PAN = 2e-5
 
 
 def scaled_round_coeffs(mu_min: float, rounds: int,
                         noise_floor: float = 5e-3):
-    """Per-round scalars for SCALED Newton-Schulz (Chen-Chow-style).
+    """Per-round scalars for SCALED Newton–Schulz (Chen–Chow-style).
 
     Plain NS contracts the residual radius r → r²; for r = 1−ε near 1
     that's ε → 2ε, one bit per round.  Rescaling the iterate so the
@@ -273,14 +217,13 @@ def scaled_round_coeffs(mu_min: float, rounds: int,
     The interval [lo, 1] ⊇ spec(AX) evolves deterministically from the
     ``mu_min`` assumption, so the c-sequence is a compile-time constant.
 
-    ``noise_floor`` — the bf16 safety clamp, found the hard way: full
-    recentering maps an eigenvalue sitting at the TOP of the assumed
-    interval to exactly the new bottom edge 4·lo/(1+lo)², and when that
-    edge is below the bf16 round noise (~2⁻⁹), noise flips such
-    eigenvalues NEGATIVE and the iteration amplifies them ~4× per round
-    → divergence.  Near-identity matrices (the diagonally-dominant
-    reference fixtures!) have their whole spectrum at the interval top,
-    which is how this surfaced.  Clamping the assumed bottom at
+    ``noise_floor`` — the bf16 safety clamp: full recentering maps an
+    eigenvalue sitting at the TOP of the assumed interval to exactly the
+    new bottom edge 4·lo/(1+lo)², and when that edge is below the bf16
+    round noise (~2⁻⁹), noise flips such eigenvalues NEGATIVE and the
+    iteration amplifies them ~4× per round → divergence.  Near-identity
+    matrices (the diagonally-dominant reference fixtures) have their whole
+    spectrum at the interval top.  Clamping the assumed bottom at
     ``noise_floor`` keeps the squashed edge ≥ 4·floor/(1+floor)² ≈ 0.02,
     ten times the noise; eigenvalues truly below the clamp still grow
     ~2c ≈ 4× per round (vs 2× unscaled), so the round count barely moves.
@@ -294,173 +237,86 @@ def scaled_round_coeffs(mu_min: float, rounds: int,
     return tuple(cs)
 
 
-def ns_vmem_rounds(lo_iters, hi_iters, a_ref, x_ref, tmp_ref, scales=None,
-                   mid_split: bool = False, polish_highest: bool = True,
-                   split3: bool = False):
-    """The iteration rounds of :func:`ns_vmem_iterate`, starting from
-    whatever ``x_ref`` already holds (used directly by the warm-start
-    kernel, where X is seeded from a previous batch's inverse — warm
-    callers MUST leave ``scales=None``: their start is already converged
-    and a recentering scalar calibrated for a cold start would blow it
-    apart).  ``scales``: per-round recentering scalars from
-    :func:`scaled_round_coeffs` (compile-time constants)."""
-    bm, n, _ = a_ref.shape
-    eye = (jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-           == jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-           ).astype(jnp.float32)
+# ---------------------------------------------------------------------------
+# Fixed schedule: one per-matrix computation, run by the Triton kernel or
+# by XLA under vmap
+# ---------------------------------------------------------------------------
 
-    lo = jax.lax.Precision.DEFAULT
-    hi = jax.lax.Precision.HIGHEST
-
-    def dot(x, y, prec):
-        return jax.lax.dot_general(
-            x, y, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=prec)
-
-    def dot3(x, y):
-        """3-pass bf16 error-split product, ~2⁻¹⁷ relative at half the
-        6-pass HIGHEST cost (Mosaic doesn't lower Precision.HIGH, so it
-        is spelled manually).  Gated on COMPILED TPU execution exactly
-        like ``mid_split``: interpret/CPU DEFAULT is already full fp32,
-        and the correction terms would double-count there."""
-        if not mid_split:
-            return dot(x, y, lo)
-        x_lo_part = x - x.astype(jnp.bfloat16).astype(jnp.float32)
-        y_lo_part = y - y.astype(jnp.bfloat16).astype(jnp.float32)
-        return (dot(x, y, lo)           # = X_hi · Y_hi
-                + dot(x_lo_part, y, lo)
-                + dot(x, y_lo_part, lo))
-
-    contract = dot3 if split3 else (lambda x, y: dot(x, y, lo))
-
-    for i in range(lo_iters):
-        c = 1.0 if scales is None or i >= len(scales) else float(scales[i])
-        # X' = cX(2I − cAX) = X·(2c·I − c²·AX): the scaling folds into
-        # the elementwise combine — identical cost to an unscaled round
-        eye2c = (2.0 * c) * eye
-        c2 = c * c
-        for b in range(bm):
-            tmp_ref[b, :, :] = eye2c - c2 * contract(a_ref[b, :, :],
-                                                     x_ref[b, :, :])
-        for b in range(bm):
-            x_ref[b, :, :] = contract(x_ref[b, :, :], tmp_ref[b, :, :])
-    if split3:
-        # High-κ polish: one-pass bf16 X·R carries a 2⁻⁹·κ·‖R‖ term that
-        # STALLS at κ ≈ 500 (it equals ‖R‖), and even the 3-pass residual
-        # probe's 2⁻¹⁷·κ error is the same size as the arriving residual —
-        # so every hi round computes R at full HIGHEST and applies the
-        # update through the split (2⁻¹⁷·κ·r ≈ 3.9e-3·r at κ=500, far
-        # below the r² contraction target).
-        for i in range(hi_iters):
-            for b in range(bm):
-                tmp_ref[b, :, :] = eye - dot(a_ref[b, :, :], x_ref[b, :, :],
-                                             hi)
-            for b in range(bm):
-                x_ref[b, :, :] = (x_ref[b, :, :]
-                                  + dot3(x_ref[b, :, :], tmp_ref[b, :, :]))
-        return
-    for i in range(hi_iters):
-        # Polish precision ladder: only the LAST round needs the full
-        # 6-pass HIGHEST residual — earlier rounds only have to beat the
-        # few-e-2 residual arriving from the bf16 phase, and a 3-pass
-        # error-split product (A_hi·X + A_lo·X_hi, each one-pass bf16;
-        # Mosaic doesn't lower Precision.HIGH so it is spelled manually)
-        # resolves R to ~2⁻¹⁷ relative.  Saves 3 MXU passes per
-        # non-final polish round.
-        #
-        # ``mid_split`` gates it to COMPILED TPU execution: the split
-        # assumes dot(·,·,DEFAULT) rounds operands to bf16 (= A_hi·X_hi);
-        # in interpret/CPU mode DEFAULT is full fp32, so adding the
-        # correction terms DOUBLE-COUNTS them and poisons the residual
-        # to ~2⁻⁸ (caught by the CPU suite at κ=30).
-        # polish_highest=False (the documented κ ≲ 10 fast variants):
-        # even the last round uses the 3-pass split — its ~2⁻¹⁷ relative
-        # residual error times κ stays under the gate only for small κ
-        final = ((i == hi_iters - 1) and polish_highest) or not mid_split
-        for b in range(bm):
-            if final:
-                tmp_ref[b, :, :] = eye - dot(a_ref[b, :, :], x_ref[b, :, :],
-                                             hi)
-            else:
-                tmp_ref[b, :, :] = eye - dot3(a_ref[b, :, :], x_ref[b, :, :])
-        for b in range(bm):
-            x_ref[b, :, :] = (x_ref[b, :, :]
-                              + dot(x_ref[b, :, :], tmp_ref[b, :, :], lo))
+def _mm(x, y, alg):
+    return jnp.matmul(x, y, precision=alg, preferred_element_type=jnp.float32)
 
 
-def _ns_warm_kernel(lo_iters, hi_iters, mid_split, split3, a_ref, x0_ref,
-                    out_ref, tmp_ref):
-    """Warm-start Newton-Schulz: seed X from a previous inverse and refine."""
-    out_ref[:, :, :] = x0_ref[:, :, :]
-    ns_vmem_rounds(lo_iters, hi_iters, a_ref, out_ref, tmp_ref,
-                   mid_split=mid_split, split3=split3)
+def _eye(n):
+    return (lax.broadcasted_iota(jnp.int32, (n, n), 0)
+            == lax.broadcasted_iota(jnp.int32, (n, n), 1)).astype(jnp.float32)
 
 
-@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters", "block",
-                                             "interpret", "init",
-                                             "polish_highest", "mu_min",
-                                             "precision"))
-def inverse_newton_schulz_pallas(
-    a: jnp.ndarray,
-    lo_iters: int | None = None,
-    hi_iters: int | None = None,
-    block: int | None = None,
-    interpret: bool | None = None,
-    init: str = "pan",
-    polish_highest: bool = True,
-    mu_min: float | None = None,
-    precision: str = "bf16",
-) -> jnp.ndarray:
-    """VMEM-resident fixed-iteration Newton-Schulz (one Pallas launch).
+def _ns_start(a, init):
+    """X₁ = 2sI − s²A, s = 1/‖A‖∞ (spd) or X₀ = Aᵀ/(‖A‖₁‖A‖∞) (pan) for
+    one (n, n) float32 matrix."""
+    r_inf = jnp.max(jnp.sum(jnp.abs(a), axis=1))
+    if init == "spd":
+        s = 1.0 / r_inf
+        return (2.0 * s) * _eye(a.shape[-1]) - (s * s) * a
+    c_1 = jnp.max(jnp.sum(jnp.abs(a), axis=0))
+    return a.T * (1.0 / (r_inf * c_1))
 
-    The fastest inversion path, measured 3.3× the adaptive XLA version at
-    1600×128 (2.29 ms vs 7.59 ms — the win is eliminating the while-loop's
-    per-iteration HBM round-trips).
 
-    DOMAIN (default schedules, κ measured in the 2-norm on geomspace-
-    spectrum SPD test batches, validated on real-TPU bf16 — see
-    tests/test_pallas_kernels.py::test_newton_schulz_domain_edge_on_tpu).
-    r2: rounds are SCALED (see :func:`scaled_round_coeffs` — recentering
-    scalars double the spectral gap per round at zero extra cost):
-    * ``init="pan"`` (any nonsingular A), lo=12 hi=2: κ(A) ≲ 30
-      (measured on chip: 2.3e-5 at κ=30 symmetric; 9.9e-5 even at κ≈100
-      nonsymmetric — the old unscaled lo=16 schedule needed 16 rounds for
-      the same edge).
-    * ``init="spd"`` (SPD A only — caller-asserted, like the Cholesky
-      paths), lo=6 hi=2: κ(A) ≲ 30 at ~half the pan MXU work (measured
-      1.8e-5 at κ=30 on chip; lo=5 already passes at 2.9e-5), because
-      the SPD start X₀ = I/‖A‖∞ contracts at 1 − 1/κ instead of 1 − 1/κ²
-      and its first round fuses into elementwise setup.
-    * ``precision="split3"`` (r3, registered ``newton_schulz_pan500_pallas``;
-      pan init only), lo=14 hi=2: κ(A) ≲ 500 for ANY nonsingular matrix —
-      every product runs the 3-pass bf16 error-split (~2⁻¹⁷ relative at
-      half the 6-pass HIGHEST cost), moving the contraction floor from
-      2⁻⁹·κ to 2⁻¹⁷·κ.  Faithful-bf16 emulation: 1.5e-5 at κ=500
-      nonsymmetric, 3.1e-5 at κ=1000 (the fp32 polish floor κ·2⁻²⁴ is
-      the binding edge past ~500).  This is the fast lane for the
-      general-square fixture class (κ-capped 4·dim, ref
-      ``tests/square_5_*.mats``) where the bf16 pan lane is out of
-      domain and the pivoting kernels cost 2.5× more MXU passes.
+def _ns_rounds(a, x, lo_iters, hi_iters, scales, split3, polish_highest):
+    """The fixed rounds on one (n, n) float32 matrix, starting from ``x``.
 
-    Beyond that the bf16 floor (≈ eps_bf16·κ) exceeds what the fp32
-    polish can recover; use :func:`inverse_newton_schulz` (adaptive) or
-    the Cholesky paths.  f64 falls back to the adaptive version — for
-    split3 requests too (with a warning): f64 arithmetic natively exceeds
-    the 2⁻¹⁷ split-precision floor, so the adaptive f64 path dominates
-    the lane that was asked for (ADVICE r3).  n > 224 (the measured VMEM
-    ceiling) routes SPD inputs through the Schur block recursion
-    (``ops/schur.py``), split3 through the XLA-level HIGH-precision lane,
-    and remaining general inputs to the adaptive path.
+    ``lo_iters`` contraction rounds X ← cX(2I − cAX) (c from ``scales``,
+    1 when ``scales`` is None — warm starts are already converged and a
+    cold-start recentering scalar would blow them apart), then
+    ``hi_iters`` polish rounds in residual form X ← X + X·R, R = I − AX.
+
+    Products: contraction at ``BF16`` (``BF16_X3`` for split3).  Polish:
+    R is fp32-class (``BF16_X6``) in the last round; earlier bf16-lane
+    rounds only have to beat the few-e-2 residual arriving from the
+    contraction and take R at ``BF16_X3``; ``polish_highest=False`` (the
+    κ ≲ 10 lane) takes every R at ``BF16_X3``.  The X·R update is one
+    bf16 pass (``BF16_X3`` for split3): its 2⁻⁹·κ·‖R‖ error is why the
+    bf16 lanes are confined to κ ≲ 30.  split3 computes every R at
+    ``BF16_X6`` — its 3-pass probe's 2⁻¹⁷·κ error is the size of the
+    arriving residual at κ = 500.
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    eye = _eye(a.shape[-1])
+    contract = BF16_X3 if split3 else BF16
+    for i in range(lo_iters):
+        c = 1.0 if scales is None else float(scales[i])
+        x = _mm(x, (2.0 * c) * eye - (c * c) * _mm(a, x, contract), contract)
+    for i in range(hi_iters):
+        final = i == hi_iters - 1 and polish_highest
+        r_alg = BF16_X6 if (split3 or final) else BF16_X3
+        r = eye - _mm(a, x, r_alg)
+        x = x + _mm(x, r, contract)
+    return x
 
-    from cuda_matrix_inversion_tpu.ops.pallas_common import (
-        default_interpret,
-        pad_batch,
-        pad_matrix_dim,
-    )
 
+def _cold_core(init, lo_iters, hi_iters, mu_min, split3, polish_highest):
+    """The per-matrix cold computation a → A⁻¹ with its schedule bound."""
+    if mu_min is None:
+        mu_min = (MU_MIN_PAN500 if split3
+                  else MU_MIN_SPD if init == "spd" else MU_MIN_PAN)
+    scales = scaled_round_coeffs(
+        mu_min, lo_iters,
+        noise_floor=SPLIT3_NOISE_FLOOR if split3 else 5e-3)
+
+    def core(a):
+        return _ns_rounds(a, _ns_start(a, init), lo_iters, hi_iters, scales,
+                          split3, polish_highest)
+
+    return core
+
+
+def _warm_core(lo_iters, hi_iters, split3):
+    def core(a, x0):
+        return _ns_rounds(a, x0, lo_iters, hi_iters, None, split3, True)
+
+    return core
+
+
+def _check_lane(init, precision, polish_highest):
     if init not in ("pan", "spd"):
         raise ValueError(f"init must be 'pan' or 'spd', got {init!r}")
     if precision not in ("bf16", "split3"):
@@ -468,287 +324,224 @@ def inverse_newton_schulz_pallas(
             f"precision must be 'bf16' or 'split3', got {precision!r}")
     split3 = precision == "split3"
     if split3 and not polish_highest:
-        # the split3 branch of ns_vmem_rounds computes EVERY hi-round
-        # residual at HIGHEST (the 3-pass probe's 2⁻¹⁷·κ error is the
-        # size of the arriving residual at κ=500); a polish_highest=False
-        # split3 lane would need its own calibration — reject rather
-        # than silently run a different kernel than requested
+        # the split3 rounds take EVERY polish residual fp32-class; a
+        # polish_highest=False split3 lane would need its own calibration
         raise ValueError("polish_highest=False is not supported with "
                          "precision='split3'")
     if split3 and init != "pan":
         # the split3 schedule is calibrated on the Pan start's µ = 1/κ²
         # interval evolution; an SPD-start split3 lane would need its own
-        # mu_min/round calibration and has no workload yet (SPD κ > 30 is
-        # served by cholesky_pallas / the Schur recursion)
+        # mu_min/round calibration
         raise ValueError("precision='split3' supports init='pan' only")
     schedule = (PAN500_SCHEDULE if split3
                 else SPD_SCHEDULE if init == "spd" else PAN_SCHEDULE)
-    if lo_iters is None:
-        lo_iters = schedule[0]
-    if hi_iters is None:
-        hi_iters = schedule[1]
-    if a.dtype == jnp.float64:
-        if split3:
-            # loud like the other explicit-lane mismatches (ADVICE r3):
-            # the request is served by a DIFFERENT algorithm — adaptive
-            # f64 NS, which natively beats the 2⁻¹⁷ split floor
-            warnings.warn(
-                "precision='split3' with float64 input: serving via the "
-                "adaptive f64 Newton-Schulz path (f64 arithmetic already "
-                "exceeds the split-precision floor)", stacklevel=2)
-        return inverse_newton_schulz(a, init=init)
-    if a.shape[-1] > 224:
-        # 224 is the measured on-chip ceiling: at n=256, BM=8 the
-        # pipelined A/X blocks + tmp scratch request 16.36 MB of scoped
-        # VMEM (limit 16 MB) — the same boundary as the warm/fused-GP
-        # kernels.
-        if init == "spd":
-            # SPD large-n: Schur block recursion down to this kernel —
-            # κ(A11), κ(S) ≤ κ(A) for SPD A (eigenvalue interlacing /
-            # λmin(S) ≥ λmin(A)), so the κ ≲ 30 schedule domain carries
-            # through unchanged (ops/schur.py; VERDICT r1 weak #2)
-            from cuda_matrix_inversion_tpu.ops.schur import spd_blocked_inverse
-
-            base = functools.partial(
-                inverse_newton_schulz_pallas, lo_iters=lo_iters,
-                hi_iters=hi_iters, interpret=interpret, init="spd",
-                polish_highest=polish_highest, mu_min=mu_min)
-            return spd_blocked_inverse(a, base, max_base_n=224)
-        if split3:
-            # general κ ≲ 500 past the VMEM ceiling: the XLA-level lane —
-            # same schedule, products at Precision.HIGH (XLA's 3-pass
-            # bf16 split; Mosaic can't lower HIGH, which is why the
-            # Pallas kernel spells it manually)
-            return inverse_newton_schulz_pan500_xla(
-                a, lo_iters=lo_iters, hi_iters=hi_iters, mu_min=mu_min)
-        # general (possibly nonsymmetric) matrices: adaptive XLA path
-        return inverse_newton_schulz(a, init=init)
-
-    batch = a.shape[0]
-    orig_dtype = a.dtype
-    a = a.astype(jnp.float32)
-    a, n_orig = pad_matrix_dim(a)
-    n = a.shape[-1]
-    run_interpret = default_interpret(interpret)
-    if block is not None:
-        bm = block
-    elif run_interpret:
-        # interpret mode (CPU tests): small block keeps interpret time
-        # sane; bm only affects padding there
-        bm = 8
-    else:
-        from cuda_matrix_inversion_tpu.ops.pallas_common import (
-            divisor_block,
-            tuned_block,
-        )
-
-        bm = divisor_block(batch, tuned_block(n))
-    a_p, orig = pad_batch(a, bm)
-    grid = a_p.shape[0] // bm
-
-    out = pl.pallas_call(
-        functools.partial(ns_vmem_iterate, lo_iters, hi_iters, init,
-                          mid_split=not run_interpret,
-                          polish_highest=polish_highest, mu_min=mu_min,
-                          split3=split3),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((bm, n, n), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((bm, n, n), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(a_p.shape, jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bm, n, n), jnp.float32)],
-        interpret=run_interpret,
-    )(a_p)
-    return out[:orig, :n_orig, :n_orig].astype(orig_dtype)
+    return split3, schedule
 
 
-_H3 = jax.lax.Precision.HIGH  # XLA 3-pass bf16 split (~2⁻¹⁷ relative on TPU)
+def _f64_route(a, split3):
+    if split3:
+        # the request is served by a DIFFERENT algorithm — adaptive f64
+        # NS (→ f64 LU), which natively beats the 2⁻¹⁷ split floor
+        warnings.warn(
+            "precision='split3' with float64 input: serving via the "
+            "adaptive f64 Newton-Schulz path (f64 arithmetic already "
+            "exceeds the split-precision floor)", stacklevel=3)
+    return inverse_newton_schulz(a)
 
 
-@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters", "mu_min"))
-def inverse_newton_schulz_pan500_xla(
+@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters", "init",
+                                             "polish_highest", "mu_min",
+                                             "precision"))
+def inverse_newton_schulz_fixed(
     a: jnp.ndarray,
     lo_iters: int | None = None,
     hi_iters: int | None = None,
+    init: str = "pan",
+    polish_highest: bool = True,
     mu_min: float | None = None,
+    precision: str = "bf16",
 ) -> jnp.ndarray:
-    """XLA-level split-precision pan500 lane: κ ≲ 500 general matrices
-    past the Pallas kernels' n = 224 VMEM ceiling.
+    """Fixed-schedule Newton–Schulz in plain XLA: the per-matrix
+    computation of :func:`inverse_newton_schulz_pallas` under ``vmap``.
 
-    Same scaled-round schedule as the ``precision="split3"`` Pallas
-    kernel, but every contraction product runs at
-    ``jax.lax.Precision.HIGH`` — which XLA lowers to the 3-pass bf16
-    error-split (measured on this chip: 3 MXU passes, vs 6 at HIGHEST),
-    the same decomposition ``ns_vmem_rounds.dot3`` spells manually
-    because Mosaic cannot lower HIGH.  The polish rounds compute the
-    residual at HIGHEST and apply the update at HIGH, exactly mirroring
-    the kernel's split3 hi-round structure, so the lo=14/hi=2
-    calibration (faithful-bf16 emulation + on-chip κ=500 edge) carries
-    over.  Iterates live in HBM (~4 matrix transfers per round vs the
-    kernel's 1-read-1-write), which is why this is the >224 fallback
-    rather than the primary lane.  On CPU HIGH/DEFAULT are full fp32 —
-    the suite validates routing and shapes; the precision domain is
-    pinned by the emulation test and the chip ledger
-    (``ns_pan500_xla_n256_kappa500``: 4.5e-5 at κ=500, n=256).
-
-    Measured on chip at 100×256 (general, κ=500): 1.99 ms/call vs
-    9.46 ms for the adaptive path this replaces (4.8×) and 15.3 ms for
-    XLA LU (7.7×) — the fixed HIGH schedule beats the adaptive loop's
-    HBM-resident while-state plus full-HIGHEST polish.
+    Each round is two batched matrix products and one elementwise
+    fusion, with the iterates in device memory between them.  Same
+    arguments, schedules and κ domains as the kernel; serves every n.
     """
-    if lo_iters is None:
-        lo_iters = PAN500_SCHEDULE[0]
-    if hi_iters is None:
-        hi_iters = PAN500_SCHEDULE[1]
+    split3, schedule = _check_lane(init, precision, polish_highest)
     if a.dtype == jnp.float64:
-        from cuda_matrix_inversion_tpu.ops import xla as _xla
+        return _f64_route(a, split3)
+    core = _cold_core(init, schedule[0] if lo_iters is None else lo_iters,
+                      schedule[1] if hi_iters is None else hi_iters,
+                      mu_min, split3, polish_highest)
+    return jax.vmap(core)(a.astype(jnp.float32)).astype(a.dtype)
 
-        return _xla.inverse_lu(a)
-    orig_dtype = a.dtype
-    a = a.astype(jnp.float32)
+
+def _kernel_n(n: int) -> int:
+    """Padded kernel width: a power of two (Triton block shapes) and at
+    least 16 (the smallest operand a Triton dot takes)."""
+    return max(16, 1 << (n - 1).bit_length())
+
+
+def _pad_scaled_identity(a: jnp.ndarray, m: int, x0=None):
+    """blockdiag(A, sI) of width ``m``, s = min(‖A‖₁, ‖A‖∞) per matrix.
+
+    Both norms of the padded matrix are A's own, so the start scalings
+    (1/‖A‖∞ for spd, 1/(‖A‖₁‖A‖∞) for pan) are the ones the schedules
+    were calibrated on, at any scale of A; and since σ_min(A) ≤ s, the
+    pad block's start eigenvalue lies inside A's own interval.  Its
+    inverse blockdiag(A⁻¹, I/s) slices back exactly.  With ``x0`` (a
+    warm start) also returns blockdiag(X₀, I/s).
+    """
     n = a.shape[-1]
-    eye = jnp.eye(n, dtype=jnp.float32)
+    if m == n:
+        return a if x0 is None else (a, x0)
+    s = jnp.minimum(jnp.max(jnp.sum(jnp.abs(a), axis=-1), axis=-1),
+                    jnp.max(jnp.sum(jnp.abs(a), axis=-2), axis=-1))
+    s = jnp.where(s > 0, s, 1.0)[..., None, None]
+    eye = jnp.eye(m - n, dtype=a.dtype)
 
-    r_inf = jnp.max(jnp.sum(jnp.abs(a), axis=2), axis=1)
-    c_1 = jnp.max(jnp.sum(jnp.abs(a), axis=1), axis=1)
-    x = jnp.swapaxes(a, 1, 2) / (r_inf * c_1)[:, None, None]
+    def pad(x, block):
+        out = jnp.zeros(x.shape[:-2] + (m, m), x.dtype)
+        return out.at[..., :n, :n].set(x).at[..., n:, n:].set(block)
 
-    cs = jnp.asarray(
-        scaled_round_coeffs(MU_MIN_PAN500 if mu_min is None else mu_min,
-                            lo_iters, noise_floor=SPLIT3_NOISE_FLOOR),
-        jnp.float32)
-
-    def lo_round(x, c):
-        ax = jnp.matmul(a, x, precision=_H3)
-        return jnp.matmul(x, (2.0 * c) * eye - (c * c) * ax,
-                          precision=_H3), None
-
-    x, _ = jax.lax.scan(lo_round, x, cs)
-    for _ in range(hi_iters):
-        r = eye - jnp.matmul(a, x, precision=_HI)
-        x = x + jnp.matmul(x, r, precision=_H3)
-    return x.astype(orig_dtype)
+    if x0 is None:
+        return pad(a, s * eye)
+    return pad(a, s * eye), pad(x0, eye / s)
 
 
-@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters"))
-def _warm_refine_split_xla(a, x0, lo_iters: int, hi_iters: int):
-    """XLA-level warm refinement at HIGH precision — the n > 224 warm
-    path for ``precision="split3"`` callers (same δ·κ ≲ 0.3 contraction
-    domain as the kernel; warm starts are already converged, so no
-    recentering scalars — see ``ns_vmem_rounds``)."""
+def _interpret(interpret: bool | None) -> bool:
+    if interpret is not None:
+        return interpret
+    return os.environ.get(INTERPRET_ENV) == "1"
+
+
+#: warps per program by padded width (one program is one matrix), the
+#: fastest at a 10 000-matrix batch on an H100 (PERF.md)
+_NUM_WARPS = {16: 4, 32: 2, 64: 4, 128: 8}
+
+
+def _per_matrix_call(core, operands, interpret: bool, name: str):
+    """Run ``core`` (n×n float32 matrices → n×n) as one Triton program per
+    matrix of the batch.  Operands are (batch, m, m) float32 with m a
+    kernel width."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as pl_triton
+
+    batch, m, _ = operands[0].shape
+    if batch == 0:
+        return jnp.zeros((0, m, m), jnp.float32)
+    spec = pl.BlockSpec((None, m, m), lambda i: (i, 0, 0))
+
+    def kernel(*refs):
+        *in_refs, out_ref = refs
+        out_ref[...] = core(*(r[...] for r in in_refs))
+
+    return pl.pallas_call(
+        kernel,
+        grid=(batch,),
+        in_specs=[spec] * len(operands),
+        out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((batch, m, m), jnp.float32),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=_NUM_WARPS[m],
+                                                 num_stages=1),
+        interpret=interpret,
+        name=name,
+    )(*operands)
+
+
+@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters",
+                                             "interpret", "init",
+                                             "polish_highest", "mu_min",
+                                             "precision"))
+def inverse_newton_schulz_pallas(
+    a: jnp.ndarray,
+    lo_iters: int | None = None,
+    hi_iters: int | None = None,
+    interpret: bool | None = None,
+    init: str = "pan",
+    polish_highest: bool = True,
+    mu_min: float | None = None,
+    precision: str = "bf16",
+) -> jnp.ndarray:
+    """Fixed-iteration Newton–Schulz, one Triton program per matrix.
+
+    Each program reads its A once, keeps X and every round's product on
+    chip, and writes X once; the plain-XLA form of the same schedule
+    (:func:`inverse_newton_schulz_fixed`) moves the iterates through
+    device memory twice per round.  n pads to a power of two ≥ 16 with
+    a scaled identity block; n > ``KERNEL_MAX_N`` runs the XLA form.
+
+    DOMAIN (default schedules, κ in the 2-norm on geomspace-spectrum test
+    batches; ``chip_smoke.py`` re-checks each edge on the GPU):
+
+    * ``init="pan"`` (any nonsingular A), lo=12 hi=2: κ(A) ≲ 30, and
+      the κ≈100 nonsymmetric edge case of ``chip_smoke.py``.
+    * ``init="spd"`` (SPD A only — caller-asserted, like the Cholesky
+      paths), lo=6 hi=2: κ(A) ≲ 30 at ~half the pan work, because the
+      SPD start X₀ = I/‖A‖∞ contracts at 1 − 1/κ instead of 1 − 1/κ² and
+      its first round folds into elementwise setup.
+    * ``precision="split3"`` (pan only), lo=14 hi=2: κ(A) ≲ 500 for any
+      nonsingular matrix — every product runs the 3-pass bf16 split.
+
+    Beyond that the bf16 floor (≈ eps_bf16·κ) exceeds what the polish can
+    recover; use :func:`inverse_newton_schulz` (adaptive) or the
+    factorization lanes.  f64 runs the adaptive path (→ f64 LU).
+    """
+    split3, schedule = _check_lane(init, precision, polish_highest)
+    if a.dtype == jnp.float64:
+        return _f64_route(a, split3)
+    lo_iters = schedule[0] if lo_iters is None else lo_iters
+    hi_iters = schedule[1] if hi_iters is None else hi_iters
     n = a.shape[-1]
-    eye = jnp.eye(n, dtype=jnp.float32)
-    x = x0
-    for _ in range(lo_iters):
-        ax = jnp.matmul(a, x, precision=_H3)
-        x = jnp.matmul(x, 2.0 * eye - ax, precision=_H3)
-    for _ in range(hi_iters):
-        r = eye - jnp.matmul(a, x, precision=_HI)
-        x = x + jnp.matmul(x, r, precision=_H3)
-    return x
+    if n > KERNEL_MAX_N:
+        return inverse_newton_schulz_fixed(
+            a, lo_iters=lo_iters, hi_iters=hi_iters, init=init,
+            polish_highest=polish_highest, mu_min=mu_min,
+            precision=precision)
+    core = _cold_core(init, lo_iters, hi_iters, mu_min, split3,
+                      polish_highest)
+    a32 = _pad_scaled_identity(a.astype(jnp.float32), _kernel_n(n))
+    out = _per_matrix_call(core, (a32,), _interpret(interpret),
+                           "newton_schulz_inverse")
+    return out[:, :n, :n].astype(a.dtype)
 
 
-@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters", "block",
+@functools.partial(jax.jit, static_argnames=("lo_iters", "hi_iters",
                                              "interpret", "precision"))
 def inverse_newton_schulz_warm(
     a: jnp.ndarray,
     x0: jnp.ndarray,
     lo_iters: int = 2,
     hi_iters: int = 1,
-    block: int | None = None,
     interpret: bool | None = None,
     precision: str = "bf16",
 ) -> jnp.ndarray:
-    """Warm-start batched inversion: refine a previous inverse of a
-    slowly-varying batch (one Pallas launch).
+    """Warm-start batched inversion: refine a previous inverse ``x0`` of a
+    slowly-varying batch.
 
     The serving pattern the reference's sensor workload implies
-    (``README.md:41-44``: per-timestep covariance batches) but never
-    built: when A changes by a relative perturbation δ between requests,
-    the old inverse X has residual ‖I − A'X‖ ≈ δ·κ(A), so the default
-    2 bf16 + 1 polish rounds recover the 1e-4 gate whenever δ·κ ≲ 0.3,
-    with the additional bf16 bound κ ≲ 30 (the one-pass X·R update
-    carries 2⁻⁹·κ·‖R‖).  The bf16 warm lane measures 1.9× the cold spd
-    schedule at 10k×128 (5.9 vs 11.0 ms, where the kernel sits at its
-    2-read+1-write HBM streaming floor; the compute saving is larger at
-    latency-bound small batches).
-
-    ``precision="split3"`` (r3) lifts the κ bound to the pan500 domain
-    κ ≲ 500 by running every product as the 3-pass error split (same
-    δ·κ ≲ 0.3 contraction condition) at ~1.5× the warm bf16 MXU cost —
-    no 10k-scale measurement yet; measured on chip at κ=300, δ·κ=0.15:
-    gate 2.0e-5, where warm bf16 stalls at 5.5e-2 (the 2⁻⁹·κ·‖R‖ wall).
-
-    Past the kernels' n = 224 VMEM ceiling (measured on chip: the two
-    pipelined inputs overflow the 16 MB scoped VMEM at n = 256 even at
-    BM = 8; n = 232 still fits — 224 keeps headroom and matches the
-    fused-GP kernel's boundary): ``precision="split3"`` refines through
-    the XLA-level HIGH-precision rounds (:func:`_warm_refine_split_xla`
-    — the warm start survives, at HBM-loop cost); bf16 falls back to a
-    cold adaptive solve (its one-pass X·R update is out of domain for
-    the κ range that needs big n), as does f64.
+    (``README.md:41-44``) but never built: when A changes by a relative
+    perturbation δ between requests, the old inverse has residual
+    ‖I − A'X‖ ≈ δ·κ(A), so the default 2 bf16 + 1 polish rounds recover
+    the 1e-4 gate whenever δ·κ ≲ 0.3, with the additional bf16 bound
+    κ ≲ 30 (the one-pass X·R update carries 2⁻⁹·κ·‖R‖).
+    ``precision="split3"`` lifts the κ bound to κ ≲ 500 by running every
+    product as the 3-pass split.  n ≤ ``KERNEL_MAX_N`` runs one Triton
+    program per matrix; larger n the same rounds in plain XLA.  f64 runs
+    a cold adaptive solve.
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cuda_matrix_inversion_tpu.ops.pallas_common import (
-        default_interpret,
-        divisor_block,
-        pad_batch,
-        pad_matrix_dim,
-        tuned_block,
-    )
-
     if precision not in ("bf16", "split3"):
         raise ValueError(
             f"precision must be 'bf16' or 'split3', got {precision!r}")
     if a.dtype == jnp.float64:
         return inverse_newton_schulz(a)
-    if a.shape[-1] > 224:
-        if precision == "split3":
-            orig_dtype = a.dtype
-            # one extra HIGHEST-residual polish vs the kernel schedule:
-            # the XLA route's products are H3 (three one-pass bf16
-            # passes, ~2⁻¹⁷ per product) where the kernel runs the full
-            # split3 error schedule — without it the n=240 gate measured
-            # 1.136e-4, 13% OVER the 1e-4 contract on ordinary draws
-            # (VERDICT r4 weak #1b); with it the polish contraction
-            # lands the same draws at ~3e-5 (κ·ε₃₂ floor)
-            out = _warm_refine_split_xla(a.astype(jnp.float32),
-                                         x0.astype(jnp.float32),
-                                         lo_iters, hi_iters + 1)
-            return out.astype(orig_dtype)
-        return inverse_newton_schulz(a)
-
-    batch = a.shape[0]
-    orig_dtype = a.dtype
-    run_interpret = default_interpret(interpret)
-    a = a.astype(jnp.float32)
-    x0 = x0.astype(jnp.float32)
-    a, n_orig = pad_matrix_dim(a)
-    x0, _ = pad_matrix_dim(x0)  # identity pad block is its own inverse
+    core = _warm_core(lo_iters, hi_iters, precision == "split3")
+    a32, x32 = a.astype(jnp.float32), x0.astype(jnp.float32)
     n = a.shape[-1]
-    # two pipelined (BM,N,N) inputs (A and X0) instead of one: BM=24
-    # overflows the 16 MB scoped VMEM at n=128 (measured 17.2 MB), so the
-    # warm path budgets like the fused-GP kernel (BM=16 ceiling)
-    bm = (block if block is not None
-          else divisor_block(batch, tuned_block(n, numerator=2 * 2**19,
-                                                max_bm=16)))
-    a_p, orig = pad_batch(a, bm)
-    x0_p, _ = pad_batch(x0, bm)
-    grid = a_p.shape[0] // bm
-
-    out = pl.pallas_call(
-        functools.partial(_ns_warm_kernel, lo_iters, hi_iters,
-                          not run_interpret, precision == "split3"),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((bm, n, n), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM)] * 2,
-        out_specs=pl.BlockSpec((bm, n, n), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(a_p.shape, jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bm, n, n), jnp.float32)],
-        interpret=run_interpret,
-    )(a_p, x0_p)
-    return out[:orig, :n_orig, :n_orig].astype(orig_dtype)
+    if n > KERNEL_MAX_N:
+        return jax.vmap(core)(a32, x32).astype(a.dtype)
+    out = _per_matrix_call(core, _pad_scaled_identity(a32, _kernel_n(n), x32),
+                           _interpret(interpret), "newton_schulz_warm")
+    return out[:, :n, :n].astype(a.dtype)

@@ -3,7 +3,7 @@
 The reference exposes six inversion algorithms side by side in its bench
 (``src/inverse_bench.c:84-89``: lu_blas_cpu, lu_blas_omp_cpu, chol_gpu,
 chol_mm2_gpu, gauss_batched_gpu, lu_cuda_batched_gpu).  This registry is
-the single place those capability names map to TPU implementations, so the
+the single place those capability names map to implementations, so the
 CLIs, tests, and bench all dispatch the same way.
 
 Device algorithms take and return ``(batch, n, n)`` jnp arrays and are
@@ -17,11 +17,10 @@ from typing import Callable, Dict
 
 _DEVICE_ALGORITHMS: Dict[str, Callable] = {}
 _CPU_ALGORITHMS: Dict[str, Callable] = {}
-# Algorithms whose device path is (or may lower to) a Pallas/Mosaic custom
-# call.  The GSPMD partitioner cannot split a Mosaic custom call across a
-# real multi-chip mesh (it replicates or errors), so the sharded wrappers
-# route these through shard_map, which runs the single-chip kernel verbatim
-# on each shard.
+# Algorithms whose device path contains a Pallas kernel.  The GSPMD
+# partitioner cannot split a Pallas custom call across a multi-device mesh
+# (it replicates or errors), so the sharded wrappers route these through
+# shard_map, which runs the single-device kernel verbatim on each shard.
 _PALLAS_ALGORITHMS: set = set()
 
 
@@ -33,9 +32,9 @@ def register_inverse(name: str, fn: Callable, cpu: bool = False,
 
 
 def is_pallas_algorithm(name: str) -> bool:
-    """True when ``name``'s device path contains a Pallas (Mosaic custom
-    call) kernel — such algorithms must be sharded via shard_map, not the
-    GSPMD partitioner (see ``parallel/sharded.py``)."""
+    """True when ``name``'s device path contains a Pallas kernel — such
+    algorithms must be sharded via shard_map, not the GSPMD partitioner
+    (see ``parallel/sharded.py``)."""
     _populate()
     return name in _PALLAS_ALGORITHMS
 
@@ -46,12 +45,14 @@ def _populate() -> None:
         return
     from cuda_matrix_inversion_tpu.ops import cpu_reference, xla
 
-    # device (TPU) paths — analog of the reference's *_batched_device family
+    # device paths — analog of the reference's *_batched_device family
     register_inverse("lu", xla.inverse_lu)
     register_inverse("cholesky", xla.inverse_cholesky)
     from cuda_matrix_inversion_tpu.ops import newton_schulz
 
     register_inverse("newton_schulz", newton_schulz.inverse_newton_schulz)
+    # Fixed-schedule lanes: one Triton program per matrix for n <= 128,
+    # the same schedule in plain XLA above (ops/newton_schulz.py).
     register_inverse("newton_schulz_pallas",
                      newton_schulz.inverse_newton_schulz_pallas, pallas=True)
     # SPD-only fast paths (caller-asserted, like the Cholesky entries):
@@ -66,72 +67,33 @@ def _populate() -> None:
                      functools.partial(newton_schulz.inverse_newton_schulz,
                                        init="spd"))
     # κ ≲ 10 fast lane (caller-asserted, narrower than the κ ≲ 30 entry):
-    # 4 scaled bf16 rounds from a µ ≥ 0.03 interval (vs 6 from 0.01) —
-    # measured 2.5e-5 worst at the κ=10 edge.  An all-3-pass polish was
-    # tried and rejected: its 2⁻¹⁷·κ residual floor measures ~1e-4 at
-    # κ=10, ON the gate.  The reference's diagonally-dominant fixture
-    # class (generate_inverse_matrices.m:8-18) lives here at κ ≈ 1.5-3.
+    # 4 scaled bf16 rounds from a µ ≥ 0.03 interval (vs 6 from 0.01).  An
+    # all-3-pass polish is not enough: its 2⁻¹⁷·κ residual floor sits at
+    # ~1e-4 at κ=10, on the gate.  The reference's diagonally-
+    # dominant fixture class (generate_inverse_matrices.m:8-18) lives here
+    # at κ ≈ 1.5-3.
     register_inverse("newton_schulz_spd10_pallas",
                      functools.partial(newton_schulz.inverse_newton_schulz_pallas,
                                        init="spd", lo_iters=4, hi_iters=2,
                                        mu_min=0.03),
                      pallas=True)
-    # κ ≲ 500 GENERAL-matrix lane (r3): every product is the 3-pass bf16
-    # error-split (~2⁻¹⁷ relative), extending the pan domain past the
-    # square_5 fixture class (κ ≤ 4·dim) at ~half the HIGHEST MXU cost —
-    # the matmul-only alternative to the pivoting kernels for
+    # κ ≲ 500 GENERAL-matrix lane: every product is the 3-pass bf16
+    # split (~2⁻¹⁷ relative), extending the pan domain past the square_5
+    # fixture class (κ ≤ 4·dim) — the matmul-only alternative to LU for
     # moderately-conditioned nonsymmetric batches.
     register_inverse("newton_schulz_pan500_pallas",
                      functools.partial(newton_schulz.inverse_newton_schulz_pallas,
                                        precision="split3"),
                      pallas=True)
-    try:
-        from cuda_matrix_inversion_tpu.ops import pallas_gauss_jordan
-
-        register_inverse("gauss_pallas", pallas_gauss_jordan.inverse_gauss_jordan,
-                         pallas=True)
-    except ImportError:
-        pass
-    try:
-        from cuda_matrix_inversion_tpu.ops import pallas_cholesky
-
-        register_inverse("cholesky_pallas", pallas_cholesky.inverse_cholesky,
-                         pallas=True)
-    except ImportError:
-        pass
-    try:
-        from cuda_matrix_inversion_tpu.ops import pallas_lu
-
-        register_inverse("lu_pallas", pallas_lu.inverse_lu, pallas=True)
-    except ImportError:
-        pass
-    try:
-        from cuda_matrix_inversion_tpu.ops import lu_bign
-
-        # the n > 256 tier of lu_pallas, exposed directly so sweeps can
-        # measure it at any n (HBM-resident work buffer, VMEM panels)
-        register_inverse("lu_bign_pallas", lu_bign.inverse_lu_big,
-                         pallas=True)
-    except ImportError:
-        pass
     from cuda_matrix_inversion_tpu.ops import double_single
 
-    # fp64-class tier: any-κ LU seed + double-single refinement with
-    # exact bf16-digit residuals (~1e-13 on-chip, chip-tests.txt r5).
-    # ADVICE r4: the default lu_pallas seed is itself guarded by a
-    # try/except above — fall back to the XLA LU seed so lu_hiacc never
-    # registers a KeyError-at-call-time entry.  The registry entry pins
-    # iters=3 (unrolled — reaches the ds floor through κ ~ 2e4 from the
-    # pivoted-LU seed) instead of the adaptive while_loop default:
-    # while_loop graphs cost multi-minute remote compiles inside the
-    # sweep/bench chain closures (the same reason bench.py excludes the
-    # adaptive NS pair); adaptive callers use inverse_hiacc_ds directly.
-    _hiacc_seed = ("lu_pallas" if "lu_pallas" in _DEVICE_ALGORITHMS
-                   else "lu")
+    # fp64-class tier on fp32 inputs: XLA LU seed + double-single
+    # refinement with exact bf16-digit residuals.  iters=3 (unrolled —
+    # reaches the ds floor through κ ~ 2e4 from the pivoted-LU seed);
+    # adaptive callers use inverse_hiacc_ds directly.
     register_inverse("lu_hiacc",
                      functools.partial(double_single.inverse_hiacc,
-                                       algorithm=_hiacc_seed, iters=3),
-                     pallas="lu_pallas" in _DEVICE_ALGORITHMS)
+                                       algorithm="lu", iters=3))
 
     # CPU oracle paths — analog of inverse_lu_blas / inverse_chol_blas
     register_inverse("lu_cpu", cpu_reference.inverse_lu, cpu=True)

@@ -25,7 +25,7 @@ def subtract_column_mean(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def covariance(x: jnp.ndarray, ddof: int = 0) -> jnp.ndarray:
-    """Column covariance (m, n) → (n, n) via XᶜᵀXᶜ on the MXU
+    """Column covariance (m, n) → (n, n) via XᶜᵀXᶜ as one matrix product
     (ref ``covariance`` over ``cblas_ssyrk``, ``inverse.c:40-48``).
     Batched inputs (..., m, n) are supported."""
     xc = subtract_column_mean(x)

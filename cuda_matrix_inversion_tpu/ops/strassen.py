@@ -1,17 +1,17 @@
-"""Strassen matrix multiplication — TPU port of the reference prototype.
+"""Strassen matrix multiplication — port of the reference prototype.
 
 Reference counterpart: ``Multiplication/multi.cu`` — a recursive Strassen
 multiply with a size cutoff (``cutoff_thres = 12``, ``multi.cu:7``) below
 which it calls a standard tiled kernel, plus add/subtract elementwise
 kernels and 2-D submatrix copies.
 
-TPU translation notes: the seven recursive products become seven jitted
+Translation notes: the seven recursive products become seven jitted
 subtrees that XLA schedules together; quadrant extraction is slicing (no
 memCopy2D — XLA owns layout); odd dimensions are zero-padded per level
 exactly like the reference pads its recursion.  The cutoff is raised to
-MXU scale: below ``cutoff`` a single ``jnp.matmul`` IS the fast path —
-on a 128×128 systolic array Strassen only pays off for very large
-operands, which the docstring test demonstrates rather than hides.
+matrix-unit scale: below ``cutoff`` a single ``jnp.matmul`` IS the fast
+path — with tensor-core matrix products Strassen only pays off for very
+large operands, which the docstring test demonstrates rather than hides.
 Supports single matrices and leading batch dims.
 """
 
@@ -78,7 +78,7 @@ def _strassen(a, b, cutoff: int):
 def strassen_matmul(a: jnp.ndarray, b: jnp.ndarray, cutoff: int = 512) -> jnp.ndarray:
     """Strassen product C = A @ B (ref ``strassen_multiply``,
     ``Multiplication/multi.cu``).  ``cutoff``: recursion stops at/below
-    this size and uses the MXU directly."""
+    this size and uses one matrix product directly."""
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
     return _strassen(a, b, cutoff)

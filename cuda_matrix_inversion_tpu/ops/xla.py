@@ -1,15 +1,15 @@
 """XLA-native batched ops — the device-resident composable layer.
 
-These are the TPU analogs of the reference's ``*_batched_device`` API
+The analogs of the reference's ``*_batched_device`` API
 (``include/inverse_gpu.h:10-23``): jit-composable functions over
-HBM-resident ``(batch, n, n)`` arrays.  The host-facing ``*_gpu``-flavor
-convenience wrappers (alloc→H2D→compute→D2H in the reference,
-``src/gauss/inverse_gpu.cu:60-123``) live in :mod:`.host_api`.
+device-resident ``(batch, n, n)`` arrays.  On the GPU, XLA hands the
+factorizations to the vendor's batched solvers (cuSOLVER/cuBLAS getrf,
+potrf, trsm) — the reference's own fastest design.  The host-facing
+``*_gpu``-flavor convenience wrappers (alloc→H2D→compute→D2H in the
+reference, ``src/gauss/inverse_gpu.cu:60-123``) live in :mod:`.host_api`.
 
-Everything here is pure XLA (no Pallas): it is both the scaffolding
-baseline the Pallas kernels must beat and a production-quality fallback.
-All matmuls run with ``precision=HIGHEST`` so fp32 stays fp32 on the MXU
-(three-pass bf16), keeping ‖AA⁻¹−I‖∞ within the 1e-4 gate.
+Every matrix product runs IEEE fp32 (``precision.F32``), keeping
+‖AA⁻¹−I‖∞ within the 1e-4 gate; float64 inputs stay f64 throughout.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-_PREC = lax.Precision.HIGHEST
+from cuda_matrix_inversion_tpu.ops.precision import matmul as _mm
 
 
 def add_diagonal(b: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
@@ -36,7 +36,7 @@ def add_diagonal(b: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
 def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched matmul (ref ``batchedMul`` over cublasSgemmBatched,
     ``src/gauss_bench.cu:87-107``)."""
-    return jnp.matmul(a, b, precision=_PREC)
+    return _mm(a, b)
 
 
 def inverse_lu(a: jnp.ndarray) -> jnp.ndarray:
@@ -44,21 +44,19 @@ def inverse_lu(a: jnp.ndarray) -> jnp.ndarray:
     ``inverse_lu_cuda_batched_device`` (cublasSgetrf/SgetriBatched,
     ``src/gauss/inverse_gpu.cu:16-58``).
 
-    In fp32 one Newton residual-polish step (X ← X + X(I − AX), HIGHEST
-    precision) follows the factorization.  The raw expander's residual is
-    κ-proportional, not just n-proportional: r2 gated it by n > 192
-    (where it reaches ~1e-3 by n ≈ 512 on the κ ≈ 2–4 SPD fixtures), but
-    the r3 general-square family showed 7e-4 at n = 128 / κ ≈ 512 — past
-    the 1e-4 gate at a size the threshold exempted — so the polish now
-    runs unconditionally in fp32 (the two extra matmuls are < 2% of the
-    expander's cost at every measured shape).  Non-finite inputs/singular
-    matrices still propagate NaN.
+    In fp32 one Newton residual-polish step (X ← X + X(I − AX), fp32
+    products) follows the factorization.  The raw factorization's fp32
+    residual is κ-proportional, not just n-proportional (~1e-3 by n ≈ 512
+    on the κ ≈ 2–4 SPD fixtures, 7e-4 at n = 128 / κ ≈ 512 on the
+    general-square family — past the 1e-4 gate), so the polish runs
+    unconditionally in fp32.  Non-finite inputs/singular matrices still
+    propagate NaN.
     """
     x = jnp.linalg.inv(a)
     if a.dtype != jnp.float64:
         eye = jnp.eye(a.shape[-1], dtype=x.dtype)
-        r = eye - jnp.matmul(a, x, precision=_PREC)
-        x = x + jnp.matmul(x, r, precision=_PREC)
+        r = eye - _mm(a, x)
+        x = x + _mm(x, r)
     return x
 
 
@@ -86,7 +84,7 @@ def inverse_cholesky(a: jnp.ndarray) -> jnp.ndarray:
     ``src/inverse_cholesky_gpu.cu:322-354``; ``multiply_lower_mm``
     ``:563-604``)."""
     w = triangular_inverse_lower(cholesky(a))
-    return jnp.matmul(jnp.swapaxes(w, -1, -2), w, precision=_PREC)
+    return _mm(jnp.swapaxes(w, -1, -2), w)
 
 
 def spd_logdet(a: jnp.ndarray) -> jnp.ndarray:

@@ -3,7 +3,7 @@
 Reference counterpart: a *designed but never implemented* feature — the
 README proposes bucketing varying-size sensor matrices into max-size
 queues {32,128,512,1024} with one CUDA stream per bucket
-(``README.md:41-44``, SURVEY §2.3 / §5).  The TPU-native realization:
+(``README.md:41-44``, SURVEY §2.3 / §5).  The realization here:
 
 * each matrix goes to the smallest bucket ≥ its dimension and is padded
   with an identity block — the inverse of ``blockdiag(A, I)`` is
@@ -82,7 +82,7 @@ def _invert_buckets(stacks_tuple, algorithm: str, keys: Tuple[int, ...]):
 
 def bucketed_inverse(
     matrices: Sequence[np.ndarray],
-    algorithm: str = "cholesky_pallas",
+    algorithm: str = "cholesky",
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     mesh=None,
 ) -> List[np.ndarray]:

@@ -1,12 +1,12 @@
 """Device-mesh construction and batch-axis sharding.
 
 The reference is single-GPU, single-process (SURVEY §2.3: the only
-transport is PCIe memcpy).  Scale-out is new design for the TPU build:
-the workload is embarrassingly parallel per matrix, so the one axis that
-matters is the batch axis, sharded over ICI on a chip mesh
-(BASELINE.json config 5: 10k × 128×128 over v5e-8).  No collectives are
-required by the math — the "communication backend" is pure sharding plus
-result gather, exactly as SURVEY §5 prescribes.
+transport is PCIe memcpy).  Scale-out is new design here: the workload is
+embarrassingly parallel per matrix, so the one axis that matters is the
+batch axis, sharded over the devices of one host (BASELINE.json config 5:
+10k × 128×128).  No collectives are required by the math — the
+"communication backend" is pure sharding plus result gather, exactly as
+SURVEY §5 prescribes.
 """
 
 from __future__ import annotations
@@ -21,12 +21,8 @@ BATCH_AXIS = "batch"
 
 
 def batch_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None) -> Mesh:
-    """A 1-D mesh over the batch axis.
-
-    ICI topology note: for a single v5e slice every device pair is
-    ICI-connected, and a 1-D mesh over all chips gives XLA the freedom to
-    lay the (collective-free) batch shards out without DCN involvement.
-    """
+    """A 1-D mesh over the batch axis (the cards of one host are joined
+    all to all, so the mesh follows the algorithm alone)."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -47,7 +43,7 @@ def batch_sharding(mesh: Mesh, ndim: int) -> NamedSharding:
 def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0):
     """Pad the batch axis so it divides the mesh; returns (padded, orig_len).
 
-    Sharding a 10k batch over 8 chips needs batch % 8 == 0; we pad with
+    Sharding a 10k batch over 8 devices needs batch % 8 == 0; we pad with
     identity-safe copies of the last element (cheap, keeps SPD-ness).
     """
     size = arr.shape[axis]

@@ -1,13 +1,13 @@
 """Multi-host (multi-process) mesh construction and batch sharding.
 
-The reference is single-GPU, single-process; one v5e *slice* is
-single-host too, so everything through r4 runs one process.  This module
-is the structural story for the next scale step (VERDICT r3/r4 next:
-multi-host) — v5e pods beyond 8 chips and multi-host CPU ingest:
+The reference is single-GPU, single-process; the four GPUs of one host
+are driven by one process too.  This module is the structural story for
+the next scale step — several hosts and multi-host CPU ingest:
 
-* each host process owns its local chips (``jax.local_devices()``);
+* each host process owns its local devices (``jax.local_devices()``);
 * ``jax.distributed.initialize`` stitches the processes into one global
-  runtime (DCN for control; ICI stays the data plane within a slice);
+  runtime (given its ``coordinator_address``, ``num_processes`` and
+  ``process_id``: nothing in the environment announces a cluster);
 * the batch axis — still the only parallelism axis this workload has —
   shards over the GLOBAL device list, and each process feeds only its
   local shard through ``jax.make_array_from_process_local_data`` (the

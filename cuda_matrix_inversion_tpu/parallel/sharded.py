@@ -1,24 +1,23 @@
-"""Sharded batched ops: inversion and the GP pipeline over a chip mesh.
+"""Sharded batched ops: inversion, the GP pipeline and its fit over a
+device mesh.
 
 New capability vs the single-GPU reference (SURVEY §2.3 row
 "multi-chip scale-out").  Two dispatch strategies:
 
 * **GSPMD** (``NamedSharding`` annotation + jit): XLA partitions the
-  program.  Correct for plain-XLA algorithms (LU/Cholesky expanders,
-  jnp Newton-Schulz) — the math has no cross-matrix dependence, so the
+  program.  Correct for plain-XLA algorithms (LU/Cholesky, jnp
+  Newton–Schulz) — the math has no cross-matrix dependence, so the
   partitioner splits the batch communication-free.
-* **shard_map**: the single-chip function runs verbatim on each chip's
-  batch shard.  This is MANDATORY for Pallas-backed algorithms on real
-  hardware: ``pallas_call`` lowers to a Mosaic custom call, which the
-  GSPMD partitioner cannot split — on a real multi-chip mesh it would
-  replicate the whole batch per chip or fail to partition.  (On the CPU
-  test mesh the kernels run in interpret mode where they are plain HLO,
-  which is why the GSPMD path *appears* to work under the dryrun — see
-  VERDICT r1 "What's weak" #1.)
+* **shard_map**: the single-device function runs verbatim on each
+  device's batch shard.  This is MANDATORY for Pallas-backed algorithms:
+  ``pallas_call`` lowers to a custom call, which the GSPMD partitioner
+  cannot split — on a multi-device mesh it would replicate the whole
+  batch per device or fail to partition.  (On the CPU test mesh the
+  kernels run in interpret mode where they are plain HLO, which is why
+  the GSPMD path *appears* to work there.)
 
-``sharded_inverse`` / ``sharded_gp_mean_variance`` pick the right
-strategy automatically from the registry's Pallas marking; the explicit
-``*_shard_map`` wrappers remain for forcing per-shard execution.
+``sharded_inverse`` picks the strategy from the registry's Pallas
+marking; the explicit ``*_shard_map`` wrappers force per-shard execution.
 
 Batches that don't divide the mesh are padded (identity matrices for
 inversion, inert zero-vector problems for GP) and un-sliced after —
@@ -102,8 +101,8 @@ def _inverse_shard_mapped(mesh, algorithm: str):
 
 
 def sharded_inverse_shard_map(mesh, a, algorithm: str = "lu"):
-    """Invert via shard_map: the single-chip kernel runs verbatim on each
-    chip's shard (no partitioner in the loop).  Pads the batch to the mesh
+    """Invert via shard_map: the single-device kernel runs verbatim on each
+    device's shard (no partitioner in the loop).  Pads the batch to the mesh
     size when needed and slices the result back."""
     padded, batch = _pad_to_mesh(mesh, a)
     out = _inverse_shard_mapped(mesh, algorithm)(_shard(mesh, padded))
@@ -115,8 +114,7 @@ def sharded_inverse(mesh, a, algorithm: str = "lu"):
 
     Input may be host (it will be scattered) or already sharded.  Pallas-
     backed algorithms route through shard_map (GSPMD cannot partition a
-    Mosaic custom call on real hardware); plain-XLA algorithms go through
-    the partitioner.
+    Pallas custom call); plain-XLA algorithms go through the partitioner.
     """
     from cuda_matrix_inversion_tpu.ops.registry import is_pallas_algorithm
 
@@ -152,9 +150,6 @@ def sharded_inverse_warm(mesh, a, x0):
 
 # ---- GP pipeline ----
 
-#: gp_mean_variance methods whose device path contains a Pallas kernel.
-_PALLAS_GP_METHODS = frozenset({"pallas", "pallas_ns"})
-
 
 @partial(jax.jit, static_argnames=("method",))
 def _gp_annotated(a, b, c, d, e, method: str):
@@ -184,8 +179,7 @@ def _pad_gp_to_mesh(mesh, a, b, c, d, e):
 
 
 def sharded_gp_shard_map(mesh, a, b, c, d, e, method: str = "solve"):
-    """GP pipeline via shard_map — per-shard verbatim execution (required
-    for the Pallas-fused methods on real hardware)."""
+    """GP pipeline via shard_map — per-shard verbatim execution."""
     (a, b, c, d, e), batch = _pad_gp_to_mesh(mesh, a, b, c, d, e)
     args = [_shard(mesh, x) for x in (a, b, c, d, e)]
     mean, var = _gp_shard_mapped(mesh, method)(*args)
@@ -195,74 +189,37 @@ def sharded_gp_shard_map(mesh, a, b, c, d, e, method: str = "solve"):
 
 
 def sharded_gp_mean_variance(mesh, a, b, c, d, e, method: str = "solve"):
-    """The full GP pipeline with every operand sharded on the batch axis.
-
-    Pallas-fused methods dispatch through shard_map (see module docstring);
-    XLA methods go through the GSPMD partitioner.
-    """
-    if method in _PALLAS_GP_METHODS:
-        return sharded_gp_shard_map(mesh, a, b, c, d, e, method=method)
+    """The full GP pipeline with every operand sharded on the batch axis,
+    partitioned by GSPMD."""
     args = [_shard(mesh, x) for x in (a, b, c, d, e)]
     return _gp_annotated(*args, method=method)
 
 
 # ---- GP hyper-parameter fit ----
 
-@functools.lru_cache(maxsize=16)
-def _fit_shard_mapped(mesh, steps: int, lr: float, method: str):
-    from cuda_matrix_inversion_tpu.models.gp_fit import fit_gp_scales
+def sharded_fit_gp_scales(mesh, b, c, d, steps: int = 150, lr: float = 0.05):
+    """Hyper-parameter fit over the mesh (``models/gp_fit.py``), batch
+    sharded and partitioned by GSPMD; each system's Adam trajectory is
+    independent, so no collectives beyond the convergence trace's mean.
 
-    spec3 = P(BATCH_AXIS, None, None)
-    spec1 = P(BATCH_AXIS)
-
-    def run(b, c, d, w):
-        # per-shard loss = weighted mean over the LOCAL shard.  Per-system
-        # gradients are independent and Adam's m̂/√v̂ normalization
-        # cancels the 1/batch scale (up to its eps term), so each
-        # system's trajectory matches the global fit.  The global trace
-        # is the weight-combined per-shard trace: inert mesh padding
-        # (weight 0) drops out entirely — its untrained θ never pollutes
-        # lml_path (code-review r3: an unweighted pmean diverged and
-        # eventually NaN'd as Adam drove the padded systems' θ to −∞).
-        res = fit_gp_scales(b, c, d, steps=steps, lr=lr, method=method,
-                            weights=w)
-        lw = jnp.sum(w)
-        num = jax.lax.psum(res.lml_path * lw, BATCH_AXIS)
-        den = jax.lax.psum(lw, BATCH_AXIS)
-        return res.log_amp, res.log_noise, res.lml, num / den
-
-    return jax.jit(jax.shard_map(
-        run, mesh=mesh, in_specs=(spec3, spec3, spec3, spec1),
-        out_specs=(spec1, spec1, spec1, P()), check_vma=False))
-
-
-def sharded_fit_gp_scales(mesh, b, c, d, steps: int = 150, lr: float = 0.05,
-                          method: str = "xla"):
-    """Hyper-parameter fit over the mesh (``models/gp_fit.py``).
-
-    ``method='pallas'`` (the fused-LML loop) routes through shard_map —
-    its forward/backward are Mosaic custom calls GSPMD cannot split —
-    with each shard running the whole Adam scan on its local systems (no
-    cross-shard collectives beyond combining the convergence trace).
-    XLA methods shard via the partitioner.  Returns a ``GPFitResult``
-    with sharded per-system leaves and a replicated global ``lml_path``.
+    A batch that does not divide the mesh is padded with inert systems
+    (identity B, unit noise, zero observations) of loss weight 0: their θ
+    stays at the start and they drop out of ``lml_path``.  Returns a
+    ``GPFitResult`` with sharded per-system leaves.
     """
     from cuda_matrix_inversion_tpu.models.gp_fit import (
         GPFitResult,
         fit_gp_scales,
     )
 
-    if method != "pallas":
-        args = [_shard(mesh, jnp.asarray(x)) for x in (b, c, d)]
-        return fit_gp_scales(*args, steps=steps, lr=lr, method=method)
-    # inert fit padding: identity B, unit noise diag, zero observations,
-    # weight 0 (frozen θ, excluded from the loss and the trace)
     w = jnp.ones((jnp.asarray(b).shape[0],), jnp.asarray(b).dtype)
     (b, c, d, w), batch = _pad_batch_to_mesh(
         mesh, (b, c, d, w), (_fill_eye, _fill_ones, _fill_zeros,
                              _fill_zeros))
-    la, ln, lml, path = _fit_shard_mapped(mesh, steps, lr, method)(
-        _shard(mesh, b), _shard(mesh, c), _shard(mesh, d), _shard(mesh, w))
-    if la.shape[0] != batch:
-        la, ln, lml = la[:batch], ln[:batch], lml[:batch]
-    return GPFitResult(log_amp=la, log_noise=ln, lml=lml, lml_path=path)
+    res = fit_gp_scales(*(_shard(mesh, x) for x in (b, c, d)), steps=steps,
+                        lr=lr, weights=_shard(mesh, w))
+    if res.log_amp.shape[0] == batch:
+        return res
+    return GPFitResult(log_amp=res.log_amp[:batch],
+                       log_noise=res.log_noise[:batch],
+                       lml=res.lml[:batch], lml_path=res.lml_path)

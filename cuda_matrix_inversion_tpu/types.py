@@ -1,8 +1,8 @@
 """Scalar/dtype configuration and the batched-matrix container.
 
 Reference counterpart: ``include/types.h:4-6`` — a single compile-time
-``DataType`` switch (float) and ``Array`` (= ``float*``).  The TPU build
-upgrades this to a runtime-selectable default dtype (fp32/fp64/bf16 — the
+``DataType`` switch (float) and ``Array`` (= ``float*``).  This build
+upgrades it to a runtime-selectable default dtype (fp32/fp64/bf16 — the
 fp32/fp64 sweep is a BASELINE.json config) and a shaped batch container
 replacing raw pointers.
 """

@@ -1,7 +1,7 @@
 """Fail-fast assertion layer.
 
 Reference counterpart: ``include/helper_cpu.h:6-28`` — ``fail``/``ensure``
-printf-and-exit macros with errno, plus ``div_ceil``.  The TPU build raises
+printf-and-exit macros with errno, plus ``div_ceil``.  This build raises
 typed exceptions instead of ``exit(1)`` so callers (pytest, long-running
 services) can recover; the benchmark CLIs convert them to exit codes at the
 top level, preserving the reference's fail-fast CLI behavior.

@@ -6,7 +6,7 @@ Reference counterpart: ``include/timer.h`` — ``TIMER_INIT/START/STOP``
 The same CSV schema is kept byte-compatible so the reference's MATLAB
 post-processing (``results/generate_plots.m``) still parses our logs.
 
-TPU-specific: device work is async under JAX, so ``Timer.stop`` accepts
+Device work is async under JAX, so ``Timer.stop`` accepts
 optional arrays to ``block_until_ready`` — the analog of the reference's
 ``cudaDeviceSynchronize`` before stopping kernel timers
 (``src/gauss_bench.cu:192``, ``src/inverse_cholesky_gpu.cu:226``).

@@ -10,7 +10,8 @@ from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
 from cuda_matrix_inversion_tpu.ops.autodiff import differentiable
 
 
-@pytest.mark.parametrize("alg", ["newton_schulz", "cholesky_pallas", "gauss_pallas", "lu_pallas"])
+@pytest.mark.parametrize("alg", ["newton_schulz", "cholesky", "lu",
+                                 "newton_schulz_spd_pallas"])
 def test_grad_matches_linalg_inv(alg, rng):
     inv = differentiable(alg)
     a = jnp.asarray(make_spd_batch(3, 8, rng).astype(np.float32))

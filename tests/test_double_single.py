@@ -3,9 +3,9 @@ next #2; reference precision switch: include/types.h:4).
 
 Tests run on CPU with x64 enabled (conftest), so every claim is checked
 against genuine f64 ground truth.  The bf16 digit casts behave
-identically on CPU and TPU (exact by construction — each digit has ≤ 8
-significand bits), so these numerics transfer; the on-chip confirmation
-rows live in results/chip-tests.txt.
+identically on every backend (exact by construction — each digit has ≤ 8
+significand bits), so these numerics transfer; ``chip_smoke.py`` checks
+the claimed residual on the GPU.
 """
 
 import numpy as np

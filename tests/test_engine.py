@@ -134,12 +134,10 @@ def test_engine_warm_precision_wiring(rng):
 
 
 def test_engine_warm_split3_past_vmem_ceiling():
-    # a split3 engine serves warm requests at n > 224 through the
-    # XLA-level HIGH rounds: no "runs a cold solve" warning, and the
-    # refinement actually recovers the gate from the previous inverse.
-    # Deterministic per-test rng (VERDICT r4 weak #1b: on the shared
-    # session rng this was draw-dependent, 1.136e-4 vs the 1e-4 gate
-    # before the XLA route gained its extra polish round).
+    # a split3 engine serves warm requests past the kernel's width
+    # through the plain-XLA rounds: no warning, and the refinement
+    # actually recovers the gate from the previous inverse.
+    # Deterministic per-test rng (VERDICT r4 weak #1b).
     import warnings
 
     import numpy as np
@@ -233,27 +231,25 @@ def test_engine_512_bucket(rng):
 
 
 def test_engine_warm_dim_buckets(rng):
-    # n in 129..224 must stay on the warm kernel (ADVICE r1 #1): it
-    # buckets to a WARM_DIM_BUCKETS entry <= 224, not to 256
-    from cuda_matrix_inversion_tpu.engine import WARM_DIM_BUCKETS
-
-    eng = InversionEngine()
-    assert eng._warm_buckets_for(10, 150) == (32, 160)
-    assert eng._warm_buckets_for(10, 224) == (32, 224)
-    assert eng._warm_buckets_for(10, 128) == (32, 128)
-    assert WARM_DIM_BUCKETS[-1] == 224
-    # past the warm kernel's ceiling: falls back to the regular buckets
-    # (cold solve inside) and warns that prev_inv is discarded
+    # warm requests share the cold dim buckets: every bucket refines the
+    # previous inverse (the kernel up to n = 128, plain XLA past it), so
+    # no bucket discards prev_inv or warns
     import warnings
 
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert eng._warm_buckets_for(10, 300) == (32, 512)
-    assert any("cold adaptive solve" in str(x.message) for x in w)
+    eng = InversionEngine(batch_buckets=(8,), dim_buckets=(8, 16, 32))
+    a = make_spd_batch(3, 20, rng).astype(np.float32)
+    inv1 = eng.inverse(a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        inv2 = eng.inverse_warm(a, inv1)
+    err = np.abs(a.astype(np.float64) @ inv2 - np.eye(20)).sum(-1).max()
+    assert err < 1e-4
+    assert list(eng._compiled_warm) == [(8, 32)]
 
 
 def test_engine_inverse_warm_160_bucket(rng):
-    # a 140-dim warm request actually refines (served by the 160 bucket)
+    # a 140-dim warm request actually refines (the 256 bucket, past the
+    # kernel's width: the plain-XLA warm rounds)
     eng = InversionEngine()
     a = make_spd_batch(4, 140, rng).astype(np.float32)
     inv1 = eng.inverse(a)
@@ -262,7 +258,7 @@ def test_engine_inverse_warm_160_bucket(rng):
     inv2 = eng.inverse_warm(a2, inv1)
     err = np.abs(a2.astype(np.float64) @ inv2 - np.eye(140)).sum(-1).max()
     assert err < 1e-4
-    assert list(eng._compiled_warm) == [(8, 160)]
+    assert list(eng._compiled_warm) == [(8, 256)]
 
 
 def test_gp_engine_warm(rng):
@@ -334,8 +330,7 @@ def test_gp_engine_fit(rng):
     eng = GPEngine()
     res = eng.fit(b, c, d, steps=30)
     assert res.log_amp.shape == (batch,)
-    ref = gp_fit.fit_gp_scales_host(b, c, d, steps=30,
-                                    method=eng.fit_method)
+    ref = gp_fit.fit_gp_scales_host(b, c, d, steps=30)
     np.testing.assert_allclose(res.log_amp, ref.log_amp, atol=1e-4)
     np.testing.assert_allclose(res.log_noise, ref.log_noise, atol=1e-4)
     np.testing.assert_allclose(res.lml, ref.lml, rtol=1e-4, atol=1e-3)
@@ -349,3 +344,15 @@ def test_gp_engine_fit(rng):
     # empty batch round-trips
     z = eng.fit(b[:0], c[:0], d[:0], steps=5)
     assert z.log_amp.shape == (0,) and z.lml_path.shape == (5,)
+
+
+@pytest.mark.parametrize("scale", [1e-5, 1e3])
+def test_engine_dim_padding_keeps_ns_start_scaling(scale, rng):
+    # n = 20 serves from the 32 bucket: the pad block is scaled to A's
+    # norm, so a Newton-Schulz lane holds the gate at any scale of A
+    eng = InversionEngine(algorithm="newton_schulz_spd_pallas",
+                          batch_buckets=(4,), dim_buckets=(32,))
+    a = (scale * make_spd_batch(3, 20, rng)).astype(np.float32)
+    out = eng.inverse(a)
+    err = np.abs(a.astype(np.float64) @ out - np.eye(20)).sum(-1).max()
+    assert err < 1e-4

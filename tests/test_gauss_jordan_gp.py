@@ -1,12 +1,29 @@
-"""Tests for the Pallas Gauss-Jordan kernel and the fused GP kernel
-(interpret mode on the CPU backend)."""
+"""Tests for the Gauss-Jordan oracle (``cpu_reference``, the reference's
+pivoting algorithm) and the GP mean/variance routes: the one-jit-region
+solve pipeline and the warm Newton-Schulz route (its kernel in the Pallas
+interpreter on the CPU backend)."""
 
 import numpy as np
 import pytest
 
 from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
-from cuda_matrix_inversion_tpu.ops.pallas_gauss_jordan import inverse_gauss_jordan
-from cuda_matrix_inversion_tpu.ops.pallas_gp import gp_mean_variance_fused
+from cuda_matrix_inversion_tpu.models.gp import gp_mean_variance
+from cuda_matrix_inversion_tpu.ops.cpu_reference import inverse_gauss_jordan
+
+
+def gp_mean_variance_fused(a, b, c, d, e):
+    return gp_mean_variance(a, b, c, d, e, method="solve")
+
+
+def gp_mean_variance_fused_ns(a, b, c, d, e):
+    """Warm route seeded with the float64 inverse of a 1e-3-drifted K."""
+    from cuda_matrix_inversion_tpu.models.gp import gp_mean_variance_warm
+
+    n = b.shape[-1]
+    k = b.astype(np.float64) * 1.001 + np.eye(n) * c[:, :, 0][:, None, :]
+    prev = np.linalg.inv(k).astype(np.float32)
+    mean, var, _ = gp_mean_variance_warm(a, b, c, d, e, prev)
+    return mean, var
 
 
 def _identity_err_inf(a, a_inv):
@@ -43,26 +60,6 @@ def test_gj_general_nonsymmetric(rng):
     assert _identity_err_inf(g, inv) < 1e-2  # random matrices: modest kappa
 
 
-@pytest.mark.parametrize("steps", [1, 4])
-def test_gj_steps_variants_agree(steps, rng):
-    # the fused multi-column body (steps=2 default) is algebraically the
-    # same elimination for any steps; pivot choices are identical, so the
-    # results agree to roundoff
-    a = make_spd_batch(4, 32, rng).astype(np.float32)
-    base = np.asarray(inverse_gauss_jordan(a))
-    var = np.asarray(inverse_gauss_jordan(a, steps=steps))
-    assert _identity_err_inf(a, var) < 1e-4
-    np.testing.assert_allclose(var, base, rtol=1e-4, atol=1e-5)
-
-
-def test_gj_steps_general_pivoting(rng):
-    # steps=4 with nontrivial pivoting on a general matrix
-    g = rng.standard_normal((4, 24, 24)).astype(np.float32)
-    base = np.asarray(inverse_gauss_jordan(g))
-    var = np.asarray(inverse_gauss_jordan(g, steps=4))
-    np.testing.assert_allclose(var, base, rtol=1e-3, atol=1e-4)
-
-
 def test_gj_mixed_batch_pivot_divergence(rng):
     # each matrix picks a different pivot row at step 0 — exercises the
     # per-matrix one-hot swap logic
@@ -73,7 +70,7 @@ def test_gj_mixed_batch_pivot_divergence(rng):
     assert _identity_err_inf(a, inv) < 1e-4
 
 
-# ---------------- fused GP kernel ----------------
+# ---------------- GP routes ----------------
 
 def _gp_ref(a, b, c, d, e):
     n = b.shape[1]
@@ -106,7 +103,9 @@ def test_fused_gp_batch_padding(rng):
     c = rng.random((batch, n, 1), dtype=np.float32)
     d = rng.random((batch, n, 1), dtype=np.float32)
     e = rng.random((batch, 1, 1), dtype=np.float32)
-    mean, var = gp_mean_variance_fused(a, b, c, d, e, block=4)
+    from cuda_matrix_inversion_tpu.engine import GPEngine
+
+    mean, var = GPEngine(batch_buckets=(8,)).mean_variance(a, b, c, d, e)
     mref, vref = _gp_ref(a, b, c, d, e)
     assert mean.shape == (batch, 1, 1)
     assert np.abs(np.asarray(mean) - mref).max() < 1e-4
@@ -121,15 +120,13 @@ def test_gp_model_pallas_method(fixture_root):
 
     data = read_test_folder(os.path.join(fixture_root, "gaussian_20_16x16"), dtype=np.float32)
     mean, var = gp.gp_mean_variance(
-        *(np.asarray(data[k]) for k in "abcde"), method="pallas")
+        *(np.asarray(data[k]) for k in "abcde"), method="lu")
     assert np.abs(np.asarray(mean) - data["means"]).max() < 1e-4
     assert np.abs(np.asarray(var) - data["variances"]).max() < 1e-4
 
 
 @pytest.mark.parametrize("n", [16, 64, 160])
 def test_fused_gp_ns_kernel(n, rng):
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import gp_mean_variance_fused_ns
-
     batch = 6
     b = make_spd_batch(batch, n, rng).astype(np.float32)
     a = rng.random((batch, n, 1), dtype=np.float32)
@@ -150,18 +147,14 @@ def test_gp_model_pallas_ns_method(fixture_root):
 
     data = read_test_folder(os.path.join(fixture_root, "gaussian_20_16x16"), dtype=np.float32)
     mean, var = gp.gp_mean_variance(
-        *(np.asarray(data[k]) for k in "abcde"), method="pallas_ns")
+        *(np.asarray(data[k]) for k in "abcde"), method="newton_schulz")
     assert np.abs(np.asarray(mean) - data["means"]).max() < 1e-4
     assert np.abs(np.asarray(var) - data["variances"]).max() < 1e-4
 
 
 def test_fused_gp_odd_n_padding(rng):
-    # n not a multiple of 8 must be tile-padded (identity block), not crash
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-        gp_mean_variance_fused,
-        gp_mean_variance_fused_ns,
-    )
-
+    # n = 12 pads to the kernel's power-of-two width (identity block) on
+    # the warm route; the solve route takes it as is
     batch, n = 4, 12
     b = make_spd_batch(batch, n, rng).astype(np.float32)
     a = rng.random((batch, n, 1), dtype=np.float32)
@@ -174,14 +167,3 @@ def test_fused_gp_odd_n_padding(rng):
         assert mean.shape == (batch, 1, 1)
         assert np.abs(np.asarray(mean) - mref).max() < 1e-4
         assert np.abs(np.asarray(var) - vref).max() < 1e-4
-
-
-def test_gj_f64_routes_to_xla(rng):
-    from cuda_matrix_inversion_tpu.ops.pallas_gauss_jordan import (
-        inverse_gauss_jordan,
-    )
-
-    a64 = make_spd_batch(2, 16, rng)  # float64
-    inv = np.asarray(inverse_gauss_jordan(a64))
-    assert inv.dtype == np.float64
-    assert _identity_err_inf(a64, inv) < 1e-12

@@ -78,12 +78,11 @@ def test_apply_scales_feeds_prediction_pipeline(synth):
     assert np.isfinite(np.asarray(var)).all()
 
 
+gp_log_marginal_likelihood_fused = gp.gp_log_marginal_likelihood_vjp
+
+
 def test_fused_lml_matches_xla(synth):
     b, c, d, _, _ = synth
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-        gp_log_marginal_likelihood_fused,
-    )
-
     fused = np.asarray(gp_log_marginal_likelihood_fused(
         *map(jnp.asarray, (b, c, d))))
     ref = np.asarray(gp.gp_log_marginal_likelihood(
@@ -92,12 +91,7 @@ def test_fused_lml_matches_xla(synth):
 
 
 def test_fused_lml_odd_n_padding(rng):
-    # n = 11 exercises the tile-padding path: identity pad rows must
-    # contribute log 1 = 0 to the logdet and nothing to the quad form
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-        gp_log_marginal_likelihood_fused,
-    )
-
+    # n = 11: value and gradients of the custom-VJP LML at an odd width
     batch, n = 5, 11
     w = rng.standard_normal((batch, n, 3))
     b = (w @ np.transpose(w, (0, 2, 1)) + 0.1 * np.eye(n)).astype(np.float32)
@@ -108,9 +102,6 @@ def test_fused_lml_odd_n_padding(rng):
     ref = np.asarray(gp.gp_log_marginal_likelihood(
         *map(jnp.asarray, (b, c, d))))
     np.testing.assert_allclose(fused, ref, rtol=1e-4, atol=1e-3)
-    # the backward slices the forward-saved W/α back from the padded n —
-    # exact only because the identity padding keeps W block-diagonal;
-    # pin that with a gradient check at the unaligned n
     import jax
 
     for argnum in (1, 2):
@@ -130,10 +121,6 @@ def test_fused_lml_analytic_gradients_match_xla(synth):
     import jax
 
     b, c, d, _, _ = synth
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import (
-        gp_log_marginal_likelihood_fused,
-    )
-
     bb, cc, dd = map(jnp.asarray, (b, c, d))
 
     for argnum, tol in ((1, 2e-3), (2, 2e-3)):
@@ -146,21 +133,41 @@ def test_fused_lml_analytic_gradients_match_xla(synth):
 
     theta = jnp.full((b.shape[0], 2), 0.1, jnp.float32)
     gt_f = jax.grad(lambda t: jnp.sum(gp_fit._batch_lml(
-        t, bb, cc, dd, method="pallas")))(theta)
-    gt_x = jax.grad(lambda t: jnp.sum(gp_fit._batch_lml(
-        t, bb, cc, dd, method="xla")))(theta)
+        t, bb, cc, dd)))(theta)
+    gt_x = jax.grad(lambda t: jnp.sum(_xla_batch_lml(t, bb, cc, dd)))(theta)
     np.testing.assert_allclose(np.asarray(gt_f), np.asarray(gt_x),
                                rtol=2e-3, atol=2e-3)
 
 
+def _xla_batch_lml(theta, b, c, d):
+    # reference LML: jax.grad differentiates through the Cholesky chain
+    b_hat, c_hat = gp_fit.apply_scales(b, c, theta[:, 0], theta[:, 1])
+    return gp.gp_log_marginal_likelihood(b_hat, c_hat, d)
+
+
 def test_fit_method_pallas_matches_xla(synth):
+    # the fit (custom-VJP gradients) against the same Adam loop driven by
+    # jax.grad of the reference LML
+    import jax
+    import optax
+
     b, c, d, _, _ = synth
-    res_x = gp_fit.fit_gp_scales_host(b, c, d, steps=60, lr=0.05)
-    res_p = gp_fit.fit_gp_scales_host(b, c, d, steps=60, lr=0.05,
-                                      method="pallas")
-    np.testing.assert_allclose(res_p.lml, res_x.lml, rtol=1e-3, atol=1e-2)
-    np.testing.assert_allclose(res_p.log_amp, res_x.log_amp, atol=5e-3)
-    np.testing.assert_allclose(res_p.log_noise, res_x.log_noise, atol=5e-3)
+    bb, cc, dd = map(jnp.asarray, (b, c, d))
+    opt = optax.adam(0.05)
+    theta = jnp.zeros((b.shape[0], 2), jnp.float32)
+    state = opt.init(theta)
+    grad = jax.jit(jax.grad(
+        lambda t: -jnp.mean(_xla_batch_lml(t, bb, cc, dd))))
+    for _ in range(60):
+        updates, state = opt.update(grad(theta), state, theta)
+        theta = optax.apply_updates(theta, updates)
+    res_x_lml = np.asarray(_xla_batch_lml(theta, bb, cc, dd))
+    res_p = gp_fit.fit_gp_scales_host(b, c, d, steps=60, lr=0.05)
+    np.testing.assert_allclose(res_p.lml, res_x_lml, rtol=1e-3, atol=1e-2)
+    np.testing.assert_allclose(res_p.log_amp, np.asarray(theta[:, 0]),
+                               atol=5e-3)
+    np.testing.assert_allclose(res_p.log_noise, np.asarray(theta[:, 1]),
+                               atol=5e-3)
 
 
 def test_gauss_bench_fit_rows(fixture_root):
@@ -174,10 +181,10 @@ def test_gauss_bench_fit_rows(fixture_root):
               skip_cpu=True, fit=True, stream=out)
     lines = out.getvalue().strip().splitlines()
     fit_rows = {l.split()[3]: l for l in lines if "fit_step" in l}
-    assert set(fit_rows) == {"fit_step_xla", "fit_step_pallas"}
-    # error column of the pallas row = total |grad diff| vs the XLA
+    assert set(fit_rows) == {"fit_step_xla", "fit_step_vjp"}
+    # error column of the vjp row = total |grad diff| vs the XLA
     # oracle, reported per matrix like every other row
-    assert float(fit_rows["fit_step_pallas"].split()[-1]) < 1e-4
+    assert float(fit_rows["fit_step_vjp"].split()[-1]) < 1e-4
 
 
 def test_theta0_warm_start(synth):
@@ -187,3 +194,30 @@ def test_theta0_warm_start(synth):
     warm = gp_fit.fit_gp_scales_host(b, c, d, steps=40, lr=0.05,
                                      theta0=theta0)
     assert warm.lml.mean() >= cold.lml.mean() - 1e-3
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("argnum", [0, 1, 2])
+def test_lml_custom_vjp_matches_jax_grad(argnum, dtype, rng):
+    # the analytic rule (∂/∂K = ½(ααᵀ − K⁻¹), ∂/∂d = −α) against autodiff
+    # through the Cholesky chain, per argument; ∂/∂B is compared on its
+    # symmetric part — the only part a symmetric perturbation of B sees
+    import jax
+
+    batch, n = 4, 24
+    w = rng.standard_normal((batch, n, 5))
+    b = (w @ np.transpose(w, (0, 2, 1)) + 0.1 * np.eye(n)).astype(dtype)
+    c = (rng.random((batch, n, 1)) + 0.5).astype(dtype)
+    d = rng.standard_normal((batch, n, 1)).astype(dtype)
+    args = tuple(map(jnp.asarray, (b, c, d)))
+    g_vjp = jax.grad(lambda *a: jnp.sum(gp.gp_log_marginal_likelihood_vjp(*a)),
+                     argnums=argnum)(*args)
+    g_ad = jax.grad(lambda *a: jnp.sum(gp.gp_log_marginal_likelihood(*a)),
+                    argnums=argnum)(*args)
+    g_vjp, g_ad = np.asarray(g_vjp), np.asarray(g_ad)
+    if argnum == 0:
+        g_vjp = (g_vjp + np.swapaxes(g_vjp, -1, -2)) / 2
+        g_ad = (g_ad + np.swapaxes(g_ad, -1, -2)) / 2
+    tol = 2e-3 if dtype == np.float32 else 1e-9
+    np.testing.assert_allclose(g_vjp, g_ad, rtol=tol, atol=tol)
+    assert g_vjp.dtype == dtype

@@ -42,7 +42,7 @@ def test_fixtures_are_exact(chain4, chain5):
 
 @pytest.mark.parametrize("chain", ["chain4", "chain5"])
 def test_cholesky_factor_matches_hand_fixture(chain, request):
-    from cuda_matrix_inversion_tpu.ops.pallas_cholesky import cholesky
+    from cuda_matrix_inversion_tpu.ops.xla import cholesky
 
     a, l, _ = request.getfixturevalue(chain)
     out = np.asarray(cholesky(a[None].astype(np.float32)))[0]
@@ -50,8 +50,8 @@ def test_cholesky_factor_matches_hand_fixture(chain, request):
 
 
 @pytest.mark.parametrize("algo", [
-    "cholesky_pallas", "gauss_pallas", "lu_pallas", "lu", "cholesky",
-    "newton_schulz_spd_pallas", "lu_cpu", "cholesky_cpu",
+    "lu", "cholesky", "newton_schulz_spd_pallas", "newton_schulz_pallas",
+    "lu_hiacc", "lu_cpu", "cholesky_cpu", "gauss_cpu",
 ])
 @pytest.mark.parametrize("chain", ["chain4", "chain5"])
 def test_inverse_matches_hand_fixture(algo, chain, request):

@@ -104,8 +104,8 @@ def test_square_fixture_family(fixture_root):
 
 
 def test_inverse_bench_runs_square_folder_pivoting_gate(fixture_root):
-    # the VERDICT done-criterion: gauss_pallas / lu_pallas rows on a
-    # square_* folder pass the 1e-4 identity gate
+    # the VERDICT done-criterion: the pivoting rows on a square_* folder
+    # pass the 1e-4 identity gate
     import io as _io
 
     from cuda_matrix_inversion_tpu.bench.inverse_bench import run_bench
@@ -115,10 +115,11 @@ def test_inverse_bench_runs_square_folder_pivoting_gate(fixture_root):
     d = os.path.join(fixture_root, "square_5_8x8")
     buf = _io.StringIO()
     rep = run_bench(d, 1, 1, csv=True,
-                    algorithms=["gauss_pallas", "lu_pallas"], stream=buf)
-    assert set(rep.entries) == {"gauss_pallas", "lu_pallas"}
+                    algorithms=["lu", "newton_schulz_pan500_pallas"],
+                    stream=buf)
+    assert set(rep.entries) == {"lu", "newton_schulz_pan500_pallas"}
     a = read_test_folder(d, kind="inverse")["a"].astype(np.float32)
-    for name in ("gauss_pallas", "lu_pallas"):
+    for name in ("lu", "newton_schulz_pan500_pallas"):
         inv = np.asarray(get_inverse_algorithm(name)(a))
         assert identity_error_inf(a, inv) < 1e-4
 

@@ -1,59 +1,16 @@
-"""Schur-complement block recursion: the 256 < n <= 512(+) serving path.
-
-On the CPU test backend the half-size Pallas bases run in interpret
-mode, so these tests keep base sizes small (``max_base_n`` overrides for
-the recursion logic; one moderate wrapper check).  The full-size
-configurations (n = 512 at batch 100) are validated on real TPU by the
-verify recipe — measured r2: chol 9.30 ms / ns_spd 1.08 ms vs 15.30 ms
-XLA Cholesky, gates 9.3e-7 / 3.3e-7.
+"""Large-n serving: the n > 128 routes of the fixed Newton-Schulz lanes
+(plain XLA past the kernel's width), the GP pipeline and the engine's 512
+bucket.
 """
 
 import numpy as np
-import pytest
 
 from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
-from cuda_matrix_inversion_tpu.ops import schur
-from cuda_matrix_inversion_tpu.ops.pallas_cholesky import inverse_cholesky
 
 
 def _gate(a, inv):
     prod = np.asarray(a, np.float64) @ np.asarray(inv, np.float64)
     return np.abs(prod - np.eye(a.shape[-1])).max()
-
-
-def test_split_point_lane_alignment():
-    assert schur._split_point(512) == 256
-    assert schur._split_point(272) == 128
-    assert schur._split_point(304) == 128
-    assert schur._split_point(608) == 256
-    # below 256 (recursive halves): ~n/2, 8-aligned
-    assert schur._split_point(160) == 80
-    assert schur._split_point(150) == 80
-
-
-def test_schur_recursion_small_base(rng):
-    # two-level recursion with tiny bases: n=150 → 80/72 → 40/40, 40/32
-    a = make_spd_batch(3, 150, rng).astype(np.float32)
-    inv = schur.spd_blocked_inverse(a, inverse_cholesky, max_base_n=64)
-    assert inv.shape == a.shape
-    assert _gate(a, inv) < 1e-4
-
-
-def test_schur_solve_matches_inverse(rng):
-    n = 100
-    a = make_spd_batch(2, n, rng).astype(np.float32)
-    rhs = rng.random((2, n, 3), dtype=np.float32)
-    x = schur.spd_schur_solve(a, rhs, inverse_cholesky, max_base_n=64)
-    x_ref = np.linalg.solve(np.asarray(a, np.float64), np.asarray(rhs, np.float64))
-    np.testing.assert_allclose(np.asarray(x), x_ref, atol=1e-4)
-
-
-def test_cholesky_pallas_serves_past_256(rng):
-    # the wrapper's n>256 route (base halves at 128/144 in interpret mode)
-    a = make_spd_batch(1, 260, rng).astype(np.float32)
-    inv = inverse_cholesky(a)
-    assert inv.shape == a.shape
-    assert _gate(a, inv) < 1e-4
 
 
 def test_newton_schulz_spd_serves_past_224(rng):
@@ -67,12 +24,11 @@ def test_newton_schulz_spd_serves_past_224(rng):
 
 
 def test_newton_schulz_spd10_schur_route_inherits_schedule(rng):
-    # ADVICE r2 (high): the n>224 Schur base partial dropped mu_min /
+    # ADVICE r2 (high): a large-n route once dropped mu_min /
     # polish_highest, so the spd10 lane (lo=4, calibrated for mu_min=0.03)
-    # ran scaled-round coefficients computed for mu_min=0.01 past the
-    # VMEM ceiling — gate 2.1e-4 at kappa=8 in fp32.  Pin the fix: the
-    # registered spd10 entry must pass the gate at n=240, kappa=8, where
-    # spd_blocked_inverse routes through the custom-schedule base.
+    # ran scaled-round coefficients computed for mu_min=0.01 — gate 2.1e-4
+    # at kappa=8 in fp32.  Pin it: the registered spd10 entry must pass
+    # the gate at n=240, kappa=8, where the XLA fixed schedule serves it.
     from cuda_matrix_inversion_tpu.ops.registry import get_inverse_algorithm
 
     q, _ = np.linalg.qr(rng.standard_normal((1, 240, 240)))
@@ -91,9 +47,9 @@ def test_gp_fused_past_256(rng):
     d = rng.random((batch, n, 1), dtype=np.float32)
     e = rng.random((batch, 1, 1), dtype=np.float32)
 
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import gp_mean_variance_fused
+    from cuda_matrix_inversion_tpu.models.gp import gp_mean_variance
 
-    mean, var = gp_mean_variance_fused(a, b, c, d, e)
+    mean, var = gp_mean_variance(a, b, c, d, e)
     k = b.astype(np.float64) + np.eye(n) * c[:, :, 0][:, None, :]
     kinv = np.linalg.inv(k)
     mref = np.transpose(a, (0, 2, 1)) @ (kinv @ d)
@@ -103,11 +59,10 @@ def test_gp_fused_past_256(rng):
 
 
 def test_engine_512_bucket_meets_gate(rng):
-    # ADVICE r1 #2: the advertised 8..512 range must hold the 1e-4 gate —
-    # the Schur-backed cholesky_pallas serves the 512 bucket
+    # ADVICE r1 #2: the advertised 8..512 range must hold the 1e-4 gate
     from cuda_matrix_inversion_tpu.engine import InversionEngine
 
-    eng = InversionEngine(algorithm="cholesky_pallas",
+    eng = InversionEngine(algorithm="cholesky",
                           dim_buckets=(8, 64, 300))
     a = make_spd_batch(1, 280, rng).astype(np.float32)
     out = eng.inverse(a)

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh."""
 
 import numpy as np
 import pytest
@@ -89,12 +89,10 @@ def test_sharded_gp_fit(mesh, rng):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_sharded_gp_fit_pallas_shard_map(mesh, rng):
-    # the fused-LML fit must route through shard_map (Mosaic custom
-    # calls are unsplittable by GSPMD on real chips); per-shard Adam on
-    # the local mean matches the global fit because per-system grads are
-    # independent and Adam cancels the 1/batch scale.  batch=12 over 8
-    # devices also exercises the inert-system padding.
+def test_sharded_gp_fit_uneven_batch_pads(mesh, rng):
+    # batch=12 over 8 devices: inert padded systems (loss weight 0) keep
+    # θ at the start and drop out of the trace, so the sharded fit
+    # matches the unsharded one system for system
     import jax.numpy as jnp
 
     from cuda_matrix_inversion_tpu.models import gp_fit
@@ -104,11 +102,10 @@ def test_sharded_gp_fit_pallas_shard_map(mesh, rng):
     b = (w @ np.transpose(w, (0, 2, 1)) + 0.05 * np.eye(n)).astype(np.float32)
     c = (rng.random((batch, n, 1)) + 0.5).astype(np.float32)
     d = rng.standard_normal((batch, n, 1)).astype(np.float32)
-    res = sharded.sharded_fit_gp_scales(mesh, b, c, d, steps=30, lr=0.05,
-                                        method="pallas")
+    res = sharded.sharded_fit_gp_scales(mesh, b, c, d, steps=30, lr=0.05)
     assert res.log_amp.shape == (batch,)
     ref = gp_fit.fit_gp_scales(*map(jnp.asarray, (b, c, d)), steps=30,
-                               lr=0.05, method="pallas")
+                               lr=0.05)
     np.testing.assert_allclose(np.asarray(res.log_amp),
                                np.asarray(ref.log_amp), atol=2e-3)
     np.testing.assert_allclose(np.asarray(res.log_noise),
@@ -145,13 +142,14 @@ def test_sharded_spd_newton_schulz(mesh, rng):
 
 def test_pallas_algorithms_route_via_shard_map(mesh, rng, monkeypatch):
     """Pallas-backed algorithms MUST take the shard_map route (GSPMD can't
-    partition a Mosaic custom call on real chips — VERDICT r1 weak #1)."""
+    partition a Pallas custom call — VERDICT r1 weak #1)."""
     from cuda_matrix_inversion_tpu.ops.registry import is_pallas_algorithm
 
-    for algo in ("newton_schulz_spd_pallas", "cholesky_pallas", "lu_pallas",
-                 "gauss_pallas"):
+    for algo in ("newton_schulz_spd_pallas", "newton_schulz_pallas",
+                 "newton_schulz_spd10_pallas", "newton_schulz_pan500_pallas"):
         assert is_pallas_algorithm(algo)
-    for algo in ("lu", "cholesky", "newton_schulz", "newton_schulz_spd"):
+    for algo in ("lu", "cholesky", "newton_schulz", "newton_schulz_spd",
+                 "lu_hiacc"):
         assert not is_pallas_algorithm(algo)
 
     calls = []
@@ -168,23 +166,7 @@ def test_pallas_algorithms_route_via_shard_map(mesh, rng, monkeypatch):
 def test_shard_map_uneven_batch_pads(mesh, rng):
     # 13 matrices over 8 devices: pad to 16, un-slice back to 13
     a = make_spd_batch(13, 8, rng).astype(np.float32)
-    out = sharded.sharded_inverse_shard_map(mesh, a, algorithm="cholesky_pallas")
+    out = sharded.sharded_inverse_shard_map(mesh, a,
+                                            algorithm="newton_schulz_spd_pallas")
     assert out.shape == (13, 8, 8)
     assert _identity_err(a, np.asarray(out)) < 1e-4
-
-
-def test_sharded_gp_pallas_fused(mesh, rng):
-    # fused Pallas GP routes through shard_map and matches the solve path
-    n, batch = 16, 16
-    b = make_spd_batch(batch, n, rng).astype(np.float32)
-    a = rng.random((batch, n, 1), dtype=np.float32)
-    c = rng.random((batch, n, 1), dtype=np.float32)
-    d = rng.random((batch, n, 1), dtype=np.float32)
-    e = rng.random((batch, 1, 1), dtype=np.float32)
-
-    mean_ref, var_ref = sharded.sharded_gp_mean_variance(mesh, a, b, c, d, e)
-    mean, var = sharded.sharded_gp_mean_variance(mesh, a, b, c, d, e,
-                                                 method="pallas")
-    assert not mean.sharding.is_fully_replicated
-    np.testing.assert_allclose(np.asarray(mean), np.asarray(mean_ref), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(var), np.asarray(var_ref), atol=1e-4)

@@ -32,7 +32,7 @@ def test_covariance_batched(rng):
 
 
 def test_membench_ici_probe_on_virtual_mesh():
-    from cuda_matrix_inversion_tpu.bench.membench import ici_ring_bandwidth
+    from cuda_matrix_inversion_tpu.bench.membench import d2d_ring_bandwidth
 
-    bw = ici_ring_bandwidth(1 << 12)
+    bw = d2d_ring_bandwidth(1 << 12)
     assert bw > 0

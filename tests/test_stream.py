@@ -68,17 +68,20 @@ def test_stream_inverse_end_to_end(tmp_path, rng):
     assert err < 1e-4
 
 
-# ---- fp64 routing through the Pallas wrappers ----
+# ---- fp64 routing through the device wrappers ----
 
 def test_pallas_wrappers_keep_fp64_exact(rng):
     import jax.numpy as jnp
 
-    from cuda_matrix_inversion_tpu.ops import pallas_cholesky as pc
-    from cuda_matrix_inversion_tpu.ops import pallas_gauss_jordan as pg
-    from cuda_matrix_inversion_tpu.ops.newton_schulz import inverse_newton_schulz
+    from cuda_matrix_inversion_tpu.ops import xla
+    from cuda_matrix_inversion_tpu.ops.newton_schulz import (
+        inverse_newton_schulz,
+        inverse_newton_schulz_pallas,
+    )
 
     a = make_spd_batch(4, 16, rng)  # float64
-    for fn in (pc.inverse_cholesky, pg.inverse_gauss_jordan, inverse_newton_schulz):
+    for fn in (xla.inverse_cholesky, inverse_newton_schulz_pallas,
+               inverse_newton_schulz):
         inv = np.asarray(fn(jnp.asarray(a)))
         assert inv.dtype == np.float64
         err = np.abs(a @ inv - np.eye(16)).max()
@@ -88,7 +91,9 @@ def test_pallas_wrappers_keep_fp64_exact(rng):
 def test_fused_gp_fp64(rng):
     import jax.numpy as jnp
 
-    from cuda_matrix_inversion_tpu.ops.pallas_gp import gp_mean_variance_fused
+    from cuda_matrix_inversion_tpu.models.gp import (
+        gp_mean_variance as gp_mean_variance_fused,
+    )
 
     n, batch = 16, 4
     b = make_spd_batch(batch, n, rng)

@@ -200,9 +200,8 @@ def test_gp_mean_variance_multi_points(rng):
 
 
 def test_gp_multi_accepts_flagship_method_strings(rng):
-    # the method strings the fused single-point pipeline uses must not
-    # crash the generic paths (code-review r3) — they pick the matching
-    # Pallas inversion kernel
+    # every method string the single-point pipeline takes must work on
+    # the multi-point path too (code-review r3)
     batch, n, m = 2, 16, 3
     b = make_spd_batch(batch, n, rng).astype(np.float32)
     c = rng.random((batch, n, 1), dtype=np.float32) + 0.5
@@ -211,7 +210,7 @@ def test_gp_multi_accepts_flagship_method_strings(rng):
     e = rng.random((batch, m, 1), dtype=np.float32) + 1.0
     ref_mean, ref_var = gp.gp_mean_variance_multi(
         *map(jnp.asarray, (a, b, c, d, e)))
-    for method in ("pallas", "pallas_ns"):
+    for method in ("inverse", "lu", "newton_schulz"):
         mean, var = gp.gp_mean_variance_multi(
             *map(jnp.asarray, (a, b, c, d, e)), method=method)
         np.testing.assert_allclose(np.asarray(mean), np.asarray(ref_mean),
